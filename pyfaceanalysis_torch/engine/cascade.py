@@ -1,0 +1,347 @@
+"""The masked, fixed-shape detection cascade -- the port's hot path.
+
+Port of ``pyfaceanalysis_tpu.engine.cascade`` for one image. All scales of
+the window grid form ONE patch batch; "discard" is a mask update, and the
+batch shrinks only at the two mid-cascade compaction rungs. Each stage
+extracts patches (or reuses the previous stage's features), runs a HiGSFA
+network and a Gaussian soft-regression, and moves or gates the boxes:
+
+- update rules:  face_analysis.py:803-840 (PosX/PosY shift by
+                 -reg*extent/regression; PAng adds; Scale rescales about
+                 the centre to desired_sampling 0.825)
+- discard rules: face_analysis.py:842-887 (drift/cutoff tests against the
+                 ORIGINAL grid box)
+- Disc:          reg is "non-faceness"; reg >= cut_offs_face[serial] dies.
+
+Patch extraction routes (``DetectorConfig.pallas_refine``, see
+:func:`level_samplers`): the iter-0 grid is a set of aligned pyramid crops
+(crop kernel or ``crop_patches``); refinement stages sample either the
+canvas (``extract_patches_rotate``) or each window's own pyramid level
+(gather kernel or its plain version).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pyfaceanalysis_torch.config import (
+    DESIRED_SAMPLING,
+    DetectorConfig,
+    NetGeometry,
+    bucket_size,
+)
+from pyfaceanalysis_torch.engine import grid as gridmod
+from pyfaceanalysis_torch.io.pipeline import PipelineSpec
+from pyfaceanalysis_torch.ops.contrast import contrast_normalize_avg_std
+from pyfaceanalysis_torch.ops.cuda_crop import crop_patches_kernel
+from pyfaceanalysis_torch.ops.cuda_gather import sample_patches_pyramid
+from pyfaceanalysis_torch.ops.patches import (
+    extract_patches_rotate,
+    sample_patches_pyramid_ref,
+)
+from pyfaceanalysis_torch.ops.pyramid import crop_patches
+
+
+class StagePlan(NamedTuple):
+    """Static per-stage schedule entry."""
+
+    kind: str           # Disc | PosX | PosY | PAng | Scale
+    serial: int         # cut-off / interpolation index
+    extract: bool       # extract patches at current boxes/angles?
+    net_idx: int        # index into the network list (-1 = reuse features)
+    clf_idx: int        # index into the classifier list
+    input_dim: int      # feature truncation width for the classifier
+
+
+def build_detection_plan(spec: PipelineSpec,
+                         net_ids: Dict[str, int],
+                         clf_input_dims: Sequence[int]
+                         ) -> Tuple[StagePlan, ...]:
+    """Reconstructs the extraction/execution schedule of the reference loop:
+    extract at stage 0 and after any non-Disc stage with its own network;
+    "None*" networks reuse the previous stage's features."""
+    plan: List[StagePlan] = []
+    prev_kind = None
+    for i, st in enumerate(spec.detection_stages):
+        reuse_net = st.reuses_features
+        extract = (i == 0) or (prev_kind != "Disc" and not reuse_net)
+        plan.append(StagePlan(
+            kind=st.kind, serial=st.serial, extract=extract,
+            net_idx=-1 if reuse_net else net_ids[st.network_name],
+            clf_idx=i, input_dim=int(clf_input_dims[i])))
+        prev_kind = st.kind
+    return tuple(plan)
+
+
+class GridPyramidInfo(NamedTuple):
+    """Ladder scales + per-window crop origins for the pyramid path."""
+
+    scales: Tuple[float, ...]
+    level_hw: Tuple[int, int]
+    crops: torch.Tensor         # (B, 3) int32 [level, y, x]
+
+
+class CascadeState(NamedTuple):
+    """Per-window cascade state ((B,) or (B, 4) tensors)."""
+
+    boxes: torch.Tensor        # [x0, y0, x1, y1] inclusive
+    angles: torch.Tensor       # degrees
+    mask: torch.Tensor         # bool: still alive
+    conf: torch.Tensor         # last Disc output ("non-faceness")
+    orig_cx: torch.Tensor      # original grid box centre (drift reference)
+    orig_cy: torch.Tensor
+    max_dx: torch.Tensor       # acceptance radii (per scale -> per window)
+    max_dy: torch.Tensor
+    base_side: torch.Tensor    # original box diagonal
+
+
+def level_samplers(cfg: DetectorConfig, device: torch.device
+                   ) -> Optional[Tuple[Callable, Callable]]:
+    """``(crop, gather)`` of the level-space path for this config and
+    device, or None for the canvas path.
+
+    "off" -> None; "ref" -> the plain versions; "on" -> the kernel
+    wrappers; "auto" -> the kernel wrappers on CUDA, None elsewhere (the
+    JAX package's CPU path is the canvas gather)."""
+    mode = cfg.pallas_refine
+    if mode == "off" or (mode == "auto" and device.type != "cuda"):
+        return None
+    if mode == "ref":
+        return crop_patches, sample_patches_pyramid_ref
+    if mode in ("on", "auto"):
+        return crop_patches_kernel, sample_patches_pyramid
+    raise ValueError(f"unknown pallas_refine {mode!r}")
+
+
+def run_cascade(plan: Tuple[StagePlan, ...],
+                nets: Sequence,                 # HierarchicalNetwork each
+                geom: NetGeometry,
+                cfg: DetectorConfig,
+                patch_hw: Tuple[int, int],
+                image: torch.Tensor,
+                clfs: Sequence,                 # GaussianRegressor each
+                state: CascadeState,
+                pyramid: Optional[torch.Tensor] = None,
+                crops: Optional[torch.Tensor] = None,
+                pyr_scales: Optional[torch.Tensor] = None,
+                collect_trace: bool = False):
+    """Runs all detection stages on one padded window batch.
+
+    With ``collect_trace`` the per-stage (boxes, angles, mask, conf)
+    snapshots are returned too, and compaction is off so every grid window
+    stays addressable.
+    """
+    trace = []
+    cut_offs = cfg.resolved_cut_offs()
+    min_scale_radio = geom.mins / DESIRED_SAMPLING
+    max_scale_radio = geom.maxs / DESIRED_SAMPLING
+    compute_dtype = torch.bfloat16 if cfg.matmul_dtype == "bf16" else None
+
+    boxes, angles, mask = state.boxes, state.angles, state.mask
+    conf = state.conf
+    orig_cx, orig_cy = state.orig_cx, state.orig_cy
+    max_dx, max_dy, base_side = state.max_dx, state.max_dy, state.base_side
+    patches = None
+    sl = None
+    fired_rung1 = fired_rung2 = False
+
+    # Refinement windows keep reading their ORIGINAL grid level.
+    levels = crops[:, 0] if crops is not None else None
+    samplers = (level_samplers(cfg, image.device)
+                if pyramid is not None else None)
+
+    for si, st in enumerate(plan):
+        if st.extract:
+            interp = cfg.interpolation_formats[st.serial]
+            if si == 0 and pyramid is not None:
+                # Iter-0 grid: contiguous crops from the scale pyramid.
+                crop = samplers[0] if samplers is not None else crop_patches
+                patches = crop(pyramid, crops, patch_hw)
+            elif samplers is not None and interp in ("nearest", "bilinear"):
+                patches = samplers[1](pyramid, pyr_scales, levels, boxes,
+                                      angles, patch_hw, method=interp)
+            else:
+                patches = extract_patches_rotate(image, boxes, angles,
+                                                 patch_hw, method=interp)
+            patches = patches.reshape(patches.shape[0], -1)
+            if cfg.detection_contrast_normalize:
+                # load_network_subimages(contrast_normalize=True): mean
+                # 137.5 / std 0.4*255 in [0, 255] units; pixels are [0, 1].
+                patches = contrast_normalize_avg_std(
+                    patches * 255.0, 137.5, 0.40 * 255.0) / 255.0
+        if st.net_idx >= 0:
+            sl = nets[st.net_idx](patches, compute_dtype=compute_dtype)
+        reg = clfs[st.clf_idx].regression(sl[:, :st.input_dim])
+
+        if st.kind == "Disc":
+            conf = torch.where(mask, reg, conf)
+            mask = mask & (reg < cut_offs[st.serial])
+            # Mid-cascade compaction: after the first Disc gate and again
+            # after Disc5, keep the best rows (alive first, then lowest
+            # confidence; stable sort, as jnp.argsort).
+            target = 0
+            if st.serial < 5 and not fired_rung1 and cfg.mid_compact:
+                target, fired_rung1 = cfg.mid_compact, True
+            elif st.serial >= 5 and not fired_rung2 and cfg.mid_compact2:
+                target, fired_rung2 = cfg.mid_compact2, True
+            if target and not collect_trace and target < mask.shape[0]:
+                rank = torch.where(mask, torch.clamp(conf, 0.0, 1.999),
+                                   torch.full_like(conf, 2.0))
+                idx = torch.argsort(rank, stable=True)[:target]
+                boxes, angles, mask, conf = (boxes[idx], angles[idx],
+                                             mask[idx], conf[idx])
+                orig_cx, orig_cy = orig_cx[idx], orig_cy[idx]
+                max_dx, max_dy = max_dx[idx], max_dy[idx]
+                base_side = base_side[idx]
+                patches = patches[idx]
+                if levels is not None:
+                    levels = levels[idx]
+                if sl is not None:
+                    sl = sl[idx]
+        elif st.kind == "PosX":
+            width = boxes[:, 2] - boxes[:, 0]
+            shift = (cfg.resolved_pos_gain() * reg * width
+                     / geom.regression_width)
+            boxes = boxes.clone()
+            boxes[:, 0] -= shift
+            boxes[:, 2] -= shift
+            drift = (boxes[:, 0] + boxes[:, 2]) / 2.0 - orig_cx
+            mask = mask & (torch.abs(drift) <=
+                           max_dx * cfg.tolerance_posxy_deviation)
+        elif st.kind == "PosY":
+            height = boxes[:, 3] - boxes[:, 1]
+            shift = (cfg.resolved_pos_gain() * reg * height
+                     / geom.regression_height)
+            boxes = boxes.clone()
+            boxes[:, 1] -= shift
+            boxes[:, 3] -= shift
+            drift = (boxes[:, 1] + boxes[:, 3]) / 2.0 - orig_cy
+            mask = mask & (torch.abs(drift) <=
+                           max_dy * cfg.tolerance_posxy_deviation)
+        elif st.kind == "PAng":
+            angles = angles + cfg.resolved_pang_gain() * reg
+            mask = mask & (torch.abs(angles) <=
+                           geom.Dang * cfg.tolerance_angle_deviation)
+        elif st.kind == "Scale":
+            w = boxes[:, 2] - boxes[:, 0]
+            h = boxes[:, 3] - boxes[:, 1]
+            cx = (boxes[:, 2] + boxes[:, 0]) / 2.0
+            cy = (boxes[:, 3] + boxes[:, 1]) / 2.0
+            safe = torch.clamp(reg, min=1e-3)
+            factor = (DESIRED_SAMPLING / safe) ** cfg.resolved_scale_gain()
+            nw = w * factor
+            nh = h * factor
+            boxes = torch.stack([cx - nw / 2, cy - nh / 2,
+                                 cx + nw / 2, cy + nh / 2], dim=1)
+            side = torch.sqrt(nw ** 2 + nh ** 2)
+            ratio = side / base_side
+            mask = mask & (ratio <= max_scale_radio *
+                           cfg.tolerance_scale_deviation)
+            mask = mask & (ratio >= min_scale_radio /
+                           cfg.tolerance_scale_deviation)
+        else:
+            raise ValueError(f"unknown stage kind {st.kind}")
+
+        if collect_trace:
+            trace.append((boxes, angles, mask, conf))
+
+    out = CascadeState(boxes, angles, mask, conf, orig_cx, orig_cy,
+                       max_dx, max_dy, base_side)
+    if collect_trace:
+        return out, tuple(trace)
+    return out
+
+
+def make_grid_state(im_width: int, im_height: int, geom: NetGeometry,
+                    cfg: DetectorConfig, track: Optional[Tuple] = None,
+                    device: torch.device = torch.device("cpu")
+                    ) -> Tuple[CascadeState, int, Optional[GridPyramidInfo]]:
+    """Builds the concatenated all-scales grid on ``device``, padded to the
+    smallest configured bucket size (a copy of the JAX function's host
+    arithmetic). Returns ``(state, n_real, pyr)``; ``pyr`` is None when a
+    crop origin falls outside its level (tracking grids), in which case
+    the cascade samples the canvas for iter 0 too."""
+    face_found = track is not None
+    samplings = gridmod.compute_sampling_values(
+        im_width, im_height, geom, cfg.smallest_face,
+        cfg.patch_overlap_sampling, cfg.adaptive_grid_scale,
+        cfg.track_single_face, face_found, track)
+
+    sw = geom.subimage_width
+    sh = geom.subimage_height
+    all_boxes, all_mdx, all_mdy, all_base, all_crops = [], [], [], [], []
+    for k, s in enumerate(samplings):
+        posX, posY, pw, ph, mdx, mdy = gridmod.compute_posX_posY_values(
+            im_width, im_height, geom, s, cfg.patch_overlap_posx_posy,
+            cfg.track_single_face, face_found, track)
+        # Snap grid origins to integer LEVEL pixels (scale s) so iter-0
+        # patches are contiguous pyramid crops.
+        lx = np.round(np.asarray(posX) / s).astype(np.int64)
+        ly = np.round(np.asarray(posY) / s).astype(np.int64)
+        posX = lx * s
+        posY = ly * s
+        boxes = gridmod.compute_subimage_coordinates(posX, posY, pw, ph)
+        n = len(boxes)
+        gx, gy = np.meshgrid(lx, ly)
+        all_crops.append(np.stack([np.full(n, k), gy.reshape(-1),
+                                   gx.reshape(-1)], axis=1))
+        all_boxes.append(boxes)
+        all_mdx.append(np.full(n, mdx))
+        all_mdy.append(np.full(n, mdy))
+        all_base.append(np.full(n, np.sqrt(pw ** 2 + ph ** 2)))
+
+    boxes = np.concatenate(all_boxes, axis=0) if all_boxes else np.zeros((0, 4))
+    n_real = len(boxes)
+    total = bucket_size(max(n_real, 1), cfg.bucket_sizes)
+
+    def padded(a, fill=0.0):
+        out = np.full((total,) + a.shape[1:], fill, a.dtype)
+        out[:n_real] = a
+        return out
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    boxes_p = padded(boxes.astype(np.float32), fill=1.0)
+    state = CascadeState(
+        boxes=dev(boxes_p),
+        angles=torch.zeros(total, dtype=torch.float32, device=device),
+        mask=dev(np.arange(total) < n_real),
+        conf=torch.ones(total, dtype=torch.float32, device=device),
+        orig_cx=dev((boxes_p[:, 0] + boxes_p[:, 2]) / 2.0),
+        orig_cy=dev((boxes_p[:, 1] + boxes_p[:, 3]) / 2.0),
+        max_dx=dev(padded(np.concatenate(all_mdx).astype(np.float32))
+                   if all_mdx else np.zeros(total, np.float32)),
+        max_dy=dev(padded(np.concatenate(all_mdy).astype(np.float32))
+                   if all_mdy else np.zeros(total, np.float32)),
+        base_side=dev(padded(np.concatenate(all_base).astype(np.float32),
+                             fill=1.0)
+                      if all_base else np.ones(total, np.float32)),
+    )
+
+    pyr = None
+    if samplings:
+        # A NATIVE-resolution level (scale 1.0) follows the ladder: eye
+        # boxes that need full detail sample it (engine.eyes).
+        s0 = min(min(samplings), 1.0)
+        # Level planes as the JAX package sizes them (its TPU kernels need
+        # lh >= 128 & %8, lw >= 256 & %128); the padding is zeros, and the
+        # same planes keep every crop and sample identical.
+        lh = max(int(np.ceil(im_height / s0)) + 2, sh + 2, 128)
+        lw = max(int(np.ceil(im_width / s0)) + 2, sw + 2, 256)
+        lh = -(-lh // 8) * 8
+        lw = -(-lw // 128) * 128
+        crops_real = np.concatenate(all_crops, axis=0).astype(np.int32)
+        # An origin outside [0, level - patch] would be clamped by the crop
+        # and shift the patch off its box: use the canvas gather instead.
+        if ((crops_real[:, 1] < 0).any() or (crops_real[:, 2] < 0).any()
+                or (crops_real[:, 1] > lh - sh).any()
+                or (crops_real[:, 2] > lw - sw).any()):
+            return state, n_real, None
+        crops = padded(crops_real)
+        pyr = GridPyramidInfo(tuple(float(s) for s in samplings) + (1.0,),
+                              (lh, lw), dev(crops))
+    return state, n_real, pyr
