@@ -10,11 +10,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 2. Loads ``SavedNetworksTPU/`` onto the card, renders a 1000x800 synthetic
    scene from ``--seed`` (random texture plus a few drawn faces) and takes
    the main path's kernel inputs from it: the pyramid and grid crops of
-   the crop kernel; refinement-sized and eye-sized box batches (with
-   out-of-level boxes and coarse-level boxes) for the gather kernel.
+   the crop kernel; refinement-sized (512 and 256 rows) and eye-sized box
+   batches (with out-of-level boxes and coarse-level boxes) for the gather
+   kernel.
 3. Holds each kernel against its plain PyTorch version on the card: crop
    exact (atol 0); gather nearest and bilinear at 64x64 and 96x96 within
-   1e-5, rounding ties excluded.
+   1e-5, rounding ties excluded, on a B=512 refinement batch (levels as a
+   strided int32 column), a B=256 batch (int64 levels, angles over +-45
+   degrees) and a B=128 eye batch. The gather computes its affine
+   coefficients itself, so the count of output pixels that differ at all is
+   reported inside and outside the tie mask (outside must be 0), and the
+   coefficients are held bit for bit against ``pyramid_affine``.
 4. Runs ``FaceDetector(model, device="cuda").detect(img,
    estimate_attributes=False)`` with the kernels on, launch counts set to
    0 just before and read just after; fails if a kernel was not launched.
@@ -26,7 +32,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    their GPU kernels' durations in a ``torch.profiler`` trace; each kernel
    also between CUDA events around back-to-back calls), and
    computes each kernel's bound from this run's inputs (bytes over
-   3.35 TB/s HBM, or float32 operations over 67 TFLOP/s).
+   3.35 TB/s HBM, or float32 operations over 67 TFLOP/s). The same trace
+   counts the GPU launches of one wrapper call: more than one fails.
 
 The last lines are one JSON object ``{"kernels": [...]}``, the output of
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and the
@@ -89,13 +96,13 @@ def synthetic_scene(seed: int, h: int = 800, w: int = 1000) -> np.ndarray:
     return np.clip(img, 0.0, 1.0).astype(np.float32)
 
 
-def device_ms(torch, fn, iters: int) -> float:
-    """Device time per call of ``fn``: the GPU kernels, copies and sets
-    that ``iters`` warm calls run, read from a ``torch.profiler`` trace, as
-    the sum over kernel names of (mean duration x launches per call). Host
-    launch overhead, which exceeds a microsecond-scale kernel, stays out of
-    the number, and an event the profiler drops at the edge of the window
-    does not bias it."""
+def device_ms(torch, fn, iters: int):
+    """Device time per call of ``fn`` and its GPU launches per call: the
+    GPU kernels, copies and sets that ``iters`` warm calls run, read from a
+    ``torch.profiler`` trace, as the sum over kernel names of (mean
+    duration x launches per call). Host launch overhead, which exceeds a
+    microsecond-scale kernel, stays out of the time, and an event the
+    profiler drops at the edge of the window biases neither number."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -113,7 +120,7 @@ def device_ms(torch, fn, iters: int) -> float:
              for d in spans.values())
     if us <= 0:
         fail(f"the profiler saw no device work in {iters} calls")
-    return us / 1e3
+    return us / 1e3, sum(round(len(d) / iters) for d in spans.values())
 
 
 def event_ms(torch, fn, iters: int) -> float:
@@ -266,9 +273,21 @@ def main() -> None:
     cy[8:16] = rand(8, lh * pyr_info.scales[0] + 10, lh * 4.0)
     ref_boxes = torch.stack([cx - side / 2, cy - side / 2,
                              cx + side / 2 - 1, cy + side / 2 - 1], 1)
-    ref_levels = crops[pick, 0].clone()
-    ref_levels[16:32] = L - 2                           # coarsest ladder
+    # Levels as the cascade passes them: the strided int32 first column
+    # of a (B, 3) crop table.
+    ref_crops = crops[pick].clone()
+    ref_crops[16:32, 0] = L - 2                         # coarsest ladder
+    ref_levels = ref_crops[:, 0]
     ref_angles = rand(n_ref, -24.0, 24.0)
+    # Second-rung batch (mid_compact2 rows): int64 levels, some beyond both
+    # clamps, angles over +-45 degrees with 0, -0 and both ends.
+    n_r2 = min(det.config.mid_compact2, n_ref)
+    r2_boxes = ref_boxes[n_ref - n_r2:].clone()
+    r2_levels = ref_levels[n_ref - n_r2:].to(torch.int64)
+    r2_levels[:4] = torch.tensor([-3, L + 5, 0, L - 1], device=dev)
+    r2_angles = rand(n_r2, -45.0, 45.0)
+    r2_angles[:6] = torch.tensor([0.0, -0.0, 45.0, -45.0, -1e-6, -22.5],
+                                 device=dev)
     # Eye batch (2 * eye_max_faces rows) at _eye_levels' levels, native
     # level included, one box too wide for any level.
     n_eye = 2 * det.config.eye_max_faces
@@ -292,9 +311,21 @@ def main() -> None:
         fail("crop kernel differs from crop_patches")
     errs["gather"] = 0.0
     for name, (lv, bx, an) in {"refine": (ref_levels, ref_boxes, ref_angles),
+                               "rung2": (r2_levels, r2_boxes, r2_angles),
                                "eye": (eye_levels, eye_boxes, eye_angles)
                                }.items():
         for hw in ((64, 64), (96, 96)):
+            # The kernel's own coefficients against their specification.
+            want_c = pyramid_affine(scales, lv, bx, an, hw)
+            got_c = cuda_gather.kernel_affine(scales, lv, bx, an, hw)
+            n_coeff = int((got_c.view(torch.int32)
+                           != want_c.view(torch.int32)).sum())
+            print(f"check gather {name} B={bx.shape[0]} {hw[0]}x{hw[1]} "
+                  f"levels {str(lv.dtype).split('.')[-1]} stride "
+                  f"{lv.stride(0)}: {n_coeff} of {want_c.numel()} in-kernel "
+                  f"coefficients differ in any bit from pyramid_affine")
+            if n_coeff:
+                fail(f"in-kernel affine coefficients differ ({name} {hw})")
             for method in ("nearest", "bilinear"):
                 got = cuda_gather.sample_patches_pyramid(
                     pyramid, scales, lv, bx, an, hw, method=method)
@@ -302,19 +333,24 @@ def main() -> None:
                                                   an, hw, method=method)
                 torch.cuda.synchronize()
                 diff = (got - want).abs()
-                n_tie = 0
+                ties = tie_mask(torch, want_c, hw)
+                n_tie = int(ties.sum())
+                n_in = int(((got != want) & ties).sum())
+                n_out = int(((got != want) & ~ties).sum())
                 if method == "nearest":
-                    ties = tie_mask(torch, pyramid_affine(scales, lv, bx, an,
-                                                          hw), hw)
-                    n_tie = int(ties.sum())
                     diff = torch.where(ties, 0.0, diff)
                 err = float(diff.max())
                 nz = int((want != 0).sum())
                 print(f"check gather {name} B={bx.shape[0]} {hw[0]}x{hw[1]} "
-                      f"{method}: max_abs_err {err} (atol 1e-5), "
-                      f"{n_tie} tie pixels excluded, {nz} nonzero samples")
+                      f"{method}: max_abs_err {err} (atol 1e-5; nearest: "
+                      f"{n_tie} tie pixels excluded), pixels that differ at "
+                      f"all: {n_in} inside the tie mask, {n_out} outside, "
+                      f"{nz} nonzero samples")
                 if not err <= 1e-5:
                     fail(f"gather kernel differs ({name} {hw} {method})")
+                if n_out:
+                    fail(f"{n_out} pixels outside the tie mask differ "
+                         f"({name} {hw} {method})")
                 errs["gather"] = max(errs["gather"], err)
 
     # -- 4. main path through the kernels, then through the plain versions ---
@@ -389,28 +425,30 @@ def main() -> None:
                  + torch.arange(64, device=dev))[:, :, None],
                 (crops[:, 2].long()[:, None]
                  + torch.arange(64, device=dev))[:, None, :])
-    crop_ms = device_ms(torch, lambda: cuda_crop.crop_patches_kernel(
+    crop_ms, crop_n = device_ms(torch, lambda: cuda_crop.crop_patches_kernel(
         pyramid, crops, (64, 64)), 100)
-    crop_plain = device_ms(torch, lambda: crop_patches(pyramid, crops,
-                                                       (64, 64)), 50)
-    crop_lib = device_ms(torch, lambda: pyramid[crop_idx], 50)
+    crop_plain, _ = device_ms(torch, lambda: crop_patches(pyramid, crops,
+                                                          (64, 64)), 50)
+    crop_lib, _ = device_ms(torch, lambda: pyramid[crop_idx], 50)
     crop_ev = event_ms(torch, lambda: cuda_crop.crop_patches_kernel(
         pyramid, crops, (64, 64)), 100)
-    print(f"crop B={B} 64x64: device {crop_ms:.6f} ms, CUDA events "
-          f"{crop_ev:.6f} ms/call, bound "
+    print(f"crop B={B} 64x64: device {crop_ms:.6f} ms in {crop_n} GPU "
+          f"launches per call, CUDA events {crop_ev:.6f} ms/call, bound "
           f"{crop_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
     entries.append({
         "name": "crop", "route": "cuda",
         "source": "pyfaceanalysis_torch/ops/csrc/crop.cu",
         "replaces": "pyfaceanalysis_tpu/ops/pallas_crop.py:73",
-        "launches": launches["crop"], "max_abs_err": errs["crop"],
+        "launches": launches["crop"], "launches_per_call": crop_n,
+        "max_abs_err": errs["crop"],
         "ms": crop_ms, "plain_ms": crop_plain,
         "bound_ms": crop_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": crop_lib})
 
     # Gather at the refinement shape (nearest 64x64, as the main path):
     # bytes = distinct texels the samples read + the outputs + the per-patch
-    # inputs; operations = the ~12 flops of the affine map per output pixel.
+    # inputs; operations = the ~12 flops of the affine map per output pixel
+    # plus ~60 per patch for its coefficients.
     hw = (64, 64)
     coeffs = pyramid_affine(scales, ref_levels, ref_boxes, ref_angles, hw)
     lx, ly = level_coords(coeffs, hw)
@@ -420,14 +458,18 @@ def main() -> None:
     texels = int(torch.unique(flat_idx[inb]).numel())
     n_out = n_ref * hw[0] * hw[1]
     g_bytes = texels * 4 + n_out * 4 + n_ref * (4 * 4 + 4 + 4) + L * 4
-    g_flops = 12 * n_out
+    g_flops = 12 * n_out + 60 * n_ref
     g_bound = max(g_bytes / HBM_BYTES_PER_S, g_flops / FP32_FLOPS_PER_S)
     g_by = ("bytes" if g_bytes / HBM_BYTES_PER_S >= g_flops / FP32_FLOPS_PER_S
             else "operations")
-    gather_ms = device_ms(torch, lambda: cuda_gather.sample_patches_pyramid(
-        pyramid, scales, ref_levels, ref_boxes, ref_angles, hw), 100)
-    gather_plain = device_ms(torch, lambda: sample_patches_pyramid_ref(
-        pyramid, scales, ref_levels, ref_boxes, ref_angles, hw), 30)
+    gather_ms, gather_n = device_ms(
+        torch, lambda: cuda_gather.sample_patches_pyramid(
+            pyramid, scales, ref_levels, ref_boxes, ref_angles, hw), 100)
+    if gather_n > 1:
+        fail(f"one gather wrapper call made {gather_n} GPU launches")
+    gather_plain, plain_n = device_ms(
+        torch, lambda: sample_patches_pyramid_ref(
+            pyramid, scales, ref_levels, ref_boxes, ref_angles, hw), 30)
     # Library yardstick: one 3-D grid_sample over the stacked levels, with
     # the sampling grid precomputed (align_corners maps -1..1 to texel
     # centres 0..n-1; the level axis lands exactly on a level).
@@ -435,27 +477,36 @@ def main() -> None:
                         (ref_levels.float()[:, None, None] / (L - 1) * 2 - 1
                          ).expand_as(lx)], dim=-1)[None]
     vol = pyramid[None, None]
-    gather_lib = device_ms(torch, lambda: torch.nn.functional.grid_sample(
+    gather_lib, _ = device_ms(torch, lambda: torch.nn.functional.grid_sample(
         vol, grid, mode="nearest", padding_mode="zeros",
         align_corners=True), 50)
-    raw = cuda_gather.KERNEL.lib()
-    lev32 = ref_levels.to(torch.int32)
-    out = torch.empty((n_ref,) + hw, device=dev)
-    kernel_only = device_ms(torch, lambda: raw.pfa_gather_launch(
-        pyramid.data_ptr(), lev32.data_ptr(), coeffs.data_ptr(),
-        out.data_ptr(), n_ref, L, lh, lw, hw[0], hw[1], 0,
-        torch.cuda.current_stream().cuda_stream), 100)
     gather_ev = event_ms(torch, lambda: cuda_gather.sample_patches_pyramid(
         pyramid, scales, ref_levels, ref_boxes, ref_angles, hw), 100)
     print(f"gather B={n_ref} 64x64 nearest: device: wrapper {gather_ms:.6f} "
-          f"ms, kernel launch alone {kernel_only:.6f} ms; CUDA events "
-          f"{gather_ev:.6f} ms/call (wrapper); {texels} distinct texels "
-          f"read, bound {g_bound * 1e3:.6f} ms")
+          f"ms in {gather_n} GPU launch per call (plain version "
+          f"{gather_plain:.6f} ms in {plain_n}), grid_sample "
+          f"{gather_lib:.6f} ms, bound {g_bound * 1e3:.6f} ms by {g_by} "
+          f"({texels} distinct texels read); CUDA events {gather_ev:.6f} "
+          f"ms/call (wrapper)")
+    # The other shapes of the main path, for the record (not in the JSON).
+    for label, (lv, bx, an), shape, method in (
+            ("rung2", (r2_levels, r2_boxes, r2_angles), (64, 64), "nearest"),
+            ("eye", (eye_levels, eye_boxes, eye_angles), (64, 64), "nearest"),
+            ("refine", (ref_levels, ref_boxes, ref_angles), (96, 96),
+             "bilinear")):
+        ms, n = device_ms(
+            torch, lambda: cuda_gather.sample_patches_pyramid(
+                pyramid, scales, lv, bx, an, shape, method), 100)
+        print(f"gather {label} B={bx.shape[0]} {shape[0]}x{shape[1]} "
+              f"{method}: device {ms:.6f} ms in {n} GPU launch per call")
+        if n > 1:
+            fail(f"one gather wrapper call ({label}) made {n} GPU launches")
     entries.append({
         "name": "gather", "route": "cuda",
         "source": "pyfaceanalysis_torch/ops/csrc/gather.cu",
         "replaces": "pyfaceanalysis_tpu/ops/pallas_gather.py:145",
-        "launches": launches["gather"], "max_abs_err": errs["gather"],
+        "launches": launches["gather"], "launches_per_call": gather_n,
+        "max_abs_err": errs["gather"],
         "ms": gather_ms, "plain_ms": gather_plain,
         "bound_ms": g_bound * 1e3, "bound_by": g_by,
         "library_ms": gather_lib})

@@ -11,7 +11,7 @@ order follows the JAX function so that nearest sampling rounds alike.
 ``sample_patches_pyramid_ref`` is the plain version of the rotated pyramid
 gather kernel (ops.cuda_gather): the same sampling, read from each patch's
 own pyramid level (canvas u <-> level u/s - 0.5), through the affine map
-of ``pyramid_affine``. Unlike the TPU kernel it samples float32 texels and
+of ``pyramid_affine``, which the kernel reproduces bit for bit. Unlike the TPU kernel it samples float32 texels and
 has no tile: every in-level texel is reachable, every out-of-level one is 0.
 """
 
@@ -87,7 +87,11 @@ def pyramid_affine(scales: torch.Tensor, levels: torch.Tensor,
         ly = ay * (j + .5) + by * (i + .5) + cy
 
     (``pallas_gather.py:176-217`` without the tile origin and roll terms).
-    Shared by the gather kernel and its plain version."""
+    This is the plain version's map and the gather kernel's specification:
+    the kernel (``csrc/gather.cu patch_affine``) computes the same
+    coefficients itself, one float32 rounding per operation in the order
+    written here, so changing an expression below changes what the kernel
+    must do."""
     oh, ow = out_hw
     lev = torch.clamp(levels.to(torch.int64), 0, scales.shape[0] - 1)
     s_k = scales.to(torch.float32)[lev]

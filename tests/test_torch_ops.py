@@ -10,6 +10,10 @@ The JAX Pallas kernels run as the JAX suite runs them on the CPU
   rounding tie may round either way and are excluded, as there;
 - contrast ops: float32 reductions summed in another order, 1e-5.
 
+The gather kernel computes its affine coefficients itself; a numpy float32
+transcription of its arithmetic, operation by operation, must equal
+``pyramid_affine`` bit for bit (no tolerance: one rounding per operation).
+
 Tests marked ``cuda`` hold the CUDA kernels against their plain versions
 on the card and skip without one.
 """
@@ -143,6 +147,110 @@ def test_kernel_wrappers_use_plain_versions_on_cpu():
                                        (64, 64), method))
     assert (cuda_crop.KERNEL.launches, cuda_gather.KERNEL.launches) == (
         n_crop, n_gather)
+
+
+def _kernel_affine_numpy(scales, levels, boxes, angles, hw):
+    """``csrc/gather.cu patch_level`` and ``patch_affine`` transcribed line
+    by line: every operation on float32 values rounds once to float32.
+    cos and sin are taken from torch (the kernel calls the functions that
+    torch.cos and torch.sin call on the card)."""
+    f = np.float32
+    oh, ow = hw
+    assert scales.dtype == boxes.dtype == angles.dtype == np.float32
+    lev = np.minimum(np.maximum(levels.astype(np.int64), 0), len(scales) - 1)
+    s_k = scales[lev]
+    x0, y0, x1, y1 = (boxes[:, k] for k in range(4))
+    bw = (x1 + f(1.0)) - x0
+    bh = (y1 + f(1.0)) - y0
+    cx = x0 + bw * f(0.5)
+    cy = y0 + bh * f(0.5)
+    rad = angles * f(0.017453292519943295)        # kDegToRad
+    co = torch.cos(torch.from_numpy(rad)).numpy()
+    si = torch.sin(torch.from_numpy(rad)).numpy()
+    dx = x0 - cx
+    dy = y0 - cy
+    sw = f(ow) * s_k
+    sh = f(oh) * s_k
+    c = [(co * bw) / sw,
+         (-si * bh) / sh,
+         ((cx + co * dx) - si * dy) / s_k - f(0.5),
+         (si * bw) / sw,
+         (co * bh) / sh,
+         ((cy + si * dx) + co * dy) / s_k - f(0.5)]
+    assert all(v.dtype == np.float32 for v in c)
+    return np.stack(c, axis=1)
+
+
+def _affine_batch(seed, n_levels, B):
+    """Levels beyond both clamps, negative, zero and +-45 degree angles,
+    sub-pixel and large boxes, boxes off the canvas."""
+    rng = np.random.RandomState(seed)
+    scales = np.sort(rng.uniform(1.0, 14.0, n_levels)).astype(np.float32)
+    scales[-1] = 1.0                                # native level last
+    levels = rng.randint(-2, n_levels + 2, B)
+    levels[:4] = (-5, 0, n_levels - 1, n_levels + 7)
+    side = np.exp(rng.uniform(np.log(0.05), np.log(900.0), B))
+    x0 = rng.uniform(-200, 1100, B)
+    y0 = rng.uniform(-200, 900, B)
+    boxes = np.stack([x0, y0, x0 + side - 1, y0 + side * 1.13 - 1],
+                     1).astype(np.float32)
+    angles = rng.uniform(-45, 45, B).astype(np.float32)
+    angles[:6] = (0.0, -0.0, 45.0, -45.0, 1e-6, -22.5)
+    return scales, levels, boxes, angles
+
+
+@pytest.mark.parametrize("levels_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("hw", [(64, 64), (96, 96), (40, 23)])
+def test_kernel_affine_transcription_equals_pyramid_affine(hw, levels_dtype):
+    """Pins the operation order the gather kernel follows: its arithmetic,
+    transcribed in numpy float32, gives pyramid_affine's bits."""
+    scales, levels, boxes, angles = _affine_batch(21, 8, 4000)
+    levels = levels.astype(levels_dtype)
+    want = pyramid_affine(_t(scales), torch.from_numpy(levels), _t(boxes),
+                          _t(angles), hw).numpy()
+    got = _kernel_affine_numpy(scales, levels, boxes, angles, hw)
+    assert np.isfinite(want).all()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_kernel_affine_transcription_is_order_sensitive():
+    """The pin has teeth: regrouping one product (co * (bw / sw) for
+    (co * bw) / sw) already changes bits on this batch."""
+    scales, levels, boxes, angles = _affine_batch(21, 8, 4000)
+    want = pyramid_affine(_t(scales), torch.from_numpy(levels), _t(boxes),
+                          _t(angles), (96, 96)).numpy()
+    lev = np.clip(levels, 0, len(scales) - 1)
+    rad = torch.deg2rad(_t(angles))
+    bw = (boxes[:, 2] + np.float32(1.0)) - boxes[:, 0]
+    regrouped = torch.cos(rad).numpy() * (bw / (np.float32(96) * scales[lev]))
+    assert (regrouped.view(np.uint32) != want[:, 0].view(np.uint32)).any()
+
+
+def test_gather_wrapper_rejects_what_the_kernel_does_not_take():
+    """The argument checks run before any launch, so a meta tensor (no
+    card needed) reaches them."""
+    pyr = torch.empty((2, 128, 256), device="meta")
+    with pytest.raises(ValueError, match="no gather kernel"):
+        cuda_gather.sample_patches_pyramid(
+            pyr, torch.empty(2, device="meta"),
+            torch.empty(3, dtype=torch.int32, device="meta"),
+            torch.empty((3, 4), device="meta"),
+            torch.empty(3, device="meta"))
+    scales = torch.ones(2)
+    boxes, angles = torch.zeros((3, 4)), torch.zeros(3)
+    levels = torch.zeros(3, dtype=torch.int32)
+    ok = cuda_gather.patch_inputs(scales, levels, boxes, angles)
+    assert ok[1] == (1, 1, 4, 1, 1) and ok[2] == 0
+    view = torch.zeros((3, 3), dtype=torch.int64)[:, 0]
+    assert cuda_gather.patch_inputs(scales, view, boxes, angles)[1:] == (
+        (1, 3, 4, 1, 1), 1)
+    for bad in ((scales, levels.float(), boxes, angles),
+                (scales, levels, boxes.double(), angles),
+                (scales, levels, boxes[:, :3], angles),
+                (scales, levels[:2], boxes, angles),
+                (scales[None], levels, boxes, angles)):
+        with pytest.raises(ValueError):
+            cuda_gather.patch_inputs(*bad)
 
 
 def _canvas_ties(boxes, angles, hw):
@@ -300,14 +408,25 @@ def test_crop_kernel_matches_plain_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["nearest", "bilinear"])
-@pytest.mark.parametrize("hw", [(64, 64), (96, 96), (40, 24)])
-def test_gather_kernel_matches_plain_on_card(cuda_device, method, hw):
+@pytest.mark.parametrize("levels_as", ["int32", "int64", "int32_column"])
+@pytest.mark.parametrize("hw", [(64, 64), (96, 96), (40, 24), (17, 30),
+                                (5, 7)])
+def test_gather_kernel_matches_plain_on_card(cuda_device, method, hw,
+                                             levels_as):
+    """Widths that are and are not multiples of 4 (float4 and scalar
+    stores), 32- and 64-bit levels, and levels as a strided column of a
+    (B, 3) tensor, as the cascade passes them."""
     pyr, scales, levels, boxes, angles = _gather_case(
         9, (1.0, 1.5, 2.7), (256, 512), 64, 30, 200, 40)
+    levels[:3] = (-1, 3, 7)                         # clamped by both versions
     dev = cuda_device
-    args = (_t(pyr).to(dev), _t(scales).to(dev),
-            _t(levels, torch.int32).to(dev), _t(boxes).to(dev),
-            _t(angles).to(dev))
+    if levels_as == "int32_column":
+        t_levels = _t(np.stack([levels] * 3, 1), torch.int32).to(dev)[:, 0]
+        assert not t_levels.is_contiguous()
+    else:
+        t_levels = _t(levels, getattr(torch, levels_as)).to(dev)
+    args = (_t(pyr).to(dev), _t(scales).to(dev), t_levels,
+            _t(boxes).to(dev), _t(angles).to(dev))
     before = cuda_gather.KERNEL.launches
     got = cuda_gather.sample_patches_pyramid(*args, hw, method)
     torch.cuda.synchronize()
@@ -318,3 +437,30 @@ def test_gather_kernel_matches_plain_on_card(cuda_device, method, hw):
         diff = np.where(_level_ties(scales, levels, boxes, angles, hw), 0,
                         diff)
     assert diff.max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_gather_kernel_empty_batch_on_card(cuda_device):
+    dev = cuda_device
+    before = cuda_gather.KERNEL.launches
+    got = cuda_gather.sample_patches_pyramid(
+        torch.zeros((2, 128, 256), device=dev), torch.ones(2, device=dev),
+        torch.zeros(0, dtype=torch.int64, device=dev),
+        torch.zeros((0, 4), device=dev), torch.zeros(0, device=dev), (64, 64))
+    assert got.shape == (0, 64, 64) and got.device.type == "cuda"
+    assert cuda_gather.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(64, 64), (96, 96), (40, 23)])
+def test_gather_kernel_coefficients_equal_pyramid_affine_on_card(cuda_device,
+                                                                 hw):
+    """The coefficients the kernel computes on the card are pyramid_affine's
+    bits on the card (same libdevice cosf/sinf, same operation order)."""
+    scales, levels, boxes, angles = _affine_batch(22, 8, 200000)
+    dev = cuda_device
+    args = (_t(scales).to(dev), torch.from_numpy(levels).to(dev),
+            _t(boxes).to(dev), _t(angles).to(dev))
+    got = cuda_gather.kernel_affine(*args, hw)
+    want = pyramid_affine(*args, hw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
