@@ -5,11 +5,13 @@ soft-regressors, run on an NVIDIA GPU (Hopper, ``sm_90a``). The JAX package
 ``pyfaceanalysis_tpu`` is the reference: this package mirrors its module
 names and functions, imports nothing from it and never imports JAX.
 
-Ported so far: single-image detection through
-``engine.detector.FaceDetector.detect(image, estimate_attributes=False)``,
-with the JAX package's two Pallas TPU kernels as hand-written CUDA kernels
-(``ops/csrc/crop.cu``, ``ops/csrc/gather.cu``). Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+Ported so far: the serving path of ``engine.detector.FaceDetector`` --
+``detect(image)`` with the age/race/gender heads, ``detect_batch(images)``
+(one fused cascade over the windows of all images, or one cascade per
+image) and ``detect_stream(batches)`` -- with the JAX package's two Pallas
+TPU kernels as hand-written CUDA kernels (``ops/csrc/crop.cu``,
+``ops/csrc/gather.cu``). Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,10 @@
 """The masked, fixed-shape detection cascade -- the port's hot path.
 
-Port of ``pyfaceanalysis_tpu.engine.cascade`` for one image. All scales of
-the window grid form ONE patch batch; "discard" is a mask update, and the
-batch shrinks only at the two mid-cascade compaction rungs. Each stage
+Port of ``pyfaceanalysis_tpu.engine.cascade``. All scales of the window
+grid form ONE patch batch; "discard" is a mask update, and the batch shrinks
+only at the two mid-cascade compaction rungs. In fused multi-image mode the
+windows of all images of a batch form that one batch
+(:func:`make_batched_grid_state`), and the rungs keep rows per image. Each stage
 extracts patches (or reuses the previous stage's features), runs a HiGSFA
 network and a Gaussian soft-regression, and moves or gates the boxes:
 
@@ -96,6 +98,29 @@ class CascadeState(NamedTuple):
     max_dx: torch.Tensor       # acceptance radii (per scale -> per window)
     max_dy: torch.Tensor
     base_side: torch.Tensor    # original box diagonal
+    # Per-window image index of a fused multi-image batch ((B,) int32;
+    # padding rows carry the sentinel n_images); None for one image.
+    img_idx: Optional[torch.Tensor] = None
+
+
+def compacted_rows_per_image(plan: Tuple[StagePlan, ...],
+                             cfg: DetectorConfig, n_per_image: int) -> int:
+    """Rows per image that survive the mid-cascade compaction schedule --
+    the SINGLE source of truth for the rung targets, mirrored exactly by
+    ``run_cascade``'s in-loop logic (callers of the fused batch path need
+    the final per-image group size to slice the output)."""
+    n = n_per_image
+    seen1 = seen2 = False
+    for st in plan:
+        if st.kind != "Disc":
+            continue
+        if st.serial < 5 and not seen1 and cfg.mid_compact:
+            seen1 = True
+            n = min(n, cfg.mid_compact)
+        elif st.serial >= 5 and not seen2 and cfg.mid_compact2:
+            seen2 = True
+            n = min(n, cfg.mid_compact2)
+    return n
 
 
 def level_samplers(cfg: DetectorConfig, device: torch.device
@@ -127,12 +152,25 @@ def run_cascade(plan: Tuple[StagePlan, ...],
                 pyramid: Optional[torch.Tensor] = None,
                 crops: Optional[torch.Tensor] = None,
                 pyr_scales: Optional[torch.Tensor] = None,
-                collect_trace: bool = False):
+                collect_trace: bool = False,
+                n_images: int = 1,
+                n_per_image: int = 0):
     """Runs all detection stages on one padded window batch.
 
     With ``collect_trace`` the per-stage (boxes, angles, mask, conf)
     snapshots are returned too, and compaction is off so every grid window
     stays addressable.
+
+    Fused multi-image mode (``n_images > 1``, requires ``state.img_idx``
+    and ``n_per_image`` = real grid rows per image): one cascade over the
+    windows of ALL images, every product ``n_images`` times taller.
+    ``image`` is a (B, H, W) stack; a supplied ``pyramid`` must be the
+    per-image pyramids concatenated along the level axis with ``crops``
+    levels pre-folded (level' = img * L + level) and ``pyr_scales`` the
+    ladder tiled per image, which keeps both kernels unchanged.
+    Mid-cascade compaction is per image (each image keeps its own best
+    ``mid_compact`` rows), preserving single-image semantics; rows stay
+    grouped contiguously by image afterwards.
     """
     trace = []
     cut_offs = cfg.resolved_cut_offs()
@@ -144,11 +182,19 @@ def run_cascade(plan: Tuple[StagePlan, ...],
     conf = state.conf
     orig_cx, orig_cy = state.orig_cx, state.orig_cy
     max_dx, max_dy, base_side = state.max_dx, state.max_dy, state.base_side
+    img_idx = state.img_idx
     patches = None
     sl = None
     fired_rung1 = fired_rung2 = False
+    fused = n_images > 1 and img_idx is not None
+    n_per_cur = n_per_image          # rows per image (fused mode only)
 
-    # Refinement windows keep reading their ORIGINAL grid level.
+    # Refinement windows keep reading their ORIGINAL grid level; in fused
+    # mode the caller folded the image index into it (stacked pyramid), so
+    # the level-space path needs no image index. A one-image batch (the
+    # tail chunk of a chunked batch) takes the same route: its folded
+    # levels are the plain ones. (The JAX package sends that case to the
+    # canvas; both CUDA kernels take it unchanged.)
     levels = crops[:, 0] if crops is not None else None
     samplers = (level_samplers(cfg, image.device)
                 if pyramid is not None else None)
@@ -165,7 +211,8 @@ def run_cascade(plan: Tuple[StagePlan, ...],
                                       angles, patch_hw, method=interp)
             else:
                 patches = extract_patches_rotate(image, boxes, angles,
-                                                 patch_hw, method=interp)
+                                                 patch_hw, method=interp,
+                                                 image_idx=img_idx)
             patches = patches.reshape(patches.shape[0], -1)
             if cfg.detection_contrast_normalize:
                 # load_network_subimages(contrast_normalize=True): mean
@@ -187,16 +234,31 @@ def run_cascade(plan: Tuple[StagePlan, ...],
                 target, fired_rung1 = cfg.mid_compact, True
             elif st.serial >= 5 and not fired_rung2 and cfg.mid_compact2:
                 target, fired_rung2 = cfg.mid_compact2, True
-            if target and not collect_trace and target < mask.shape[0]:
+            cur_rows = n_per_cur if fused else mask.shape[0]
+            if target and not collect_trace and target < cur_rows:
                 rank = torch.where(mask, torch.clamp(conf, 0.0, 1.999),
                                    torch.full_like(conf, 2.0))
-                idx = torch.argsort(rank, stable=True)[:target]
+                if fused:
+                    # Per-image rung: rows are grouped contiguously by
+                    # image (n_per_cur each; padding carries the img_idx
+                    # sentinel n_images and sorts last), so one stable
+                    # composite-key sort yields each image's rows in a
+                    # contiguous sorted block of exactly n_per_cur entries.
+                    order = torch.argsort(
+                        rank + 4.0 * img_idx.to(torch.float32), stable=True)
+                    idx = order[:n_images * n_per_cur].reshape(
+                        n_images, n_per_cur)[:, :target].reshape(-1)
+                    n_per_cur = target
+                else:
+                    idx = torch.argsort(rank, stable=True)[:target]
                 boxes, angles, mask, conf = (boxes[idx], angles[idx],
                                              mask[idx], conf[idx])
                 orig_cx, orig_cy = orig_cx[idx], orig_cy[idx]
                 max_dx, max_dy = max_dx[idx], max_dy[idx]
                 base_side = base_side[idx]
                 patches = patches[idx]
+                if img_idx is not None:
+                    img_idx = img_idx[idx]
                 if levels is not None:
                     levels = levels[idx]
                 if sl is not None:
@@ -249,7 +311,7 @@ def run_cascade(plan: Tuple[StagePlan, ...],
             trace.append((boxes, angles, mask, conf))
 
     out = CascadeState(boxes, angles, mask, conf, orig_cx, orig_cy,
-                       max_dx, max_dy, base_side)
+                       max_dx, max_dy, base_side, img_idx)
     if collect_trace:
         return out, tuple(trace)
     return out
@@ -345,3 +407,62 @@ def make_grid_state(im_width: int, im_height: int, geom: NetGeometry,
         pyr = GridPyramidInfo(tuple(float(s) for s in samplings) + (1.0,),
                               (lh, lw), dev(crops))
     return state, n_real, pyr
+
+
+def make_batched_grid_state(im_width: int, im_height: int, geom: NetGeometry,
+                            cfg: DetectorConfig, n_images: int,
+                            device: torch.device = torch.device("cpu")
+                            ) -> Tuple[CascadeState, int,
+                                       Optional[GridPyramidInfo]]:
+    """Grid state for the FUSED multi-image cascade: the single-image grid
+    tiled ``n_images`` times (contiguous per-image blocks) with a per-row
+    image index, padded to a bucket. Padding rows carry the img_idx
+    SENTINEL ``n_images`` so per-image compaction sorts them last
+    (run_cascade fused mode).
+
+    Returns ``(state, n_real_per_image, pyr)`` where ``pyr.crops`` levels
+    are image-folded (level' = img * L + level) for the stacked pyramid
+    (ops.pyramid.build_pyramid_batch) and ``pyr.scales`` is the
+    single-image ladder (callers tile it).
+    """
+    state, n_real, pyr = make_grid_state(im_width, im_height, geom, cfg)
+    if n_real == 0:
+        return state, n_real, pyr
+    # n_images == 1 goes through the tiling too: the fused cascade needs a
+    # per-row img_idx, and one-image batches do reach it (the tail chunk
+    # of a detect_batch split at max_fused_batch).
+    total = bucket_size(n_images * n_real, cfg.bucket_sizes)
+
+    def tile_pad(a: torch.Tensor, fill) -> torch.Tensor:
+        a = a.numpy()[:n_real]
+        out = np.full((total,) + a.shape[1:], fill, a.dtype)
+        out[: n_images * n_real] = np.concatenate([a] * n_images, axis=0)
+        return torch.as_tensor(out, device=device)
+
+    img_idx = np.full(total, n_images, np.int32)
+    img_idx[: n_images * n_real] = np.repeat(
+        np.arange(n_images, dtype=np.int32), n_real)
+
+    batched = CascadeState(
+        boxes=tile_pad(state.boxes, 1.0),
+        angles=torch.zeros(total, dtype=torch.float32, device=device),
+        mask=torch.as_tensor(np.arange(total) < n_images * n_real,
+                             device=device),
+        conf=torch.ones(total, dtype=torch.float32, device=device),
+        orig_cx=tile_pad(state.orig_cx, 1.0),
+        orig_cy=tile_pad(state.orig_cy, 1.0),
+        max_dx=tile_pad(state.max_dx, 0.0),
+        max_dy=tile_pad(state.max_dy, 0.0),
+        base_side=tile_pad(state.base_side, 1.0),
+        img_idx=torch.as_tensor(img_idx, device=device),
+    )
+    if pyr is None:
+        return batched, n_real, None
+    L = len(pyr.scales)
+    crops = pyr.crops.numpy()[:n_real]
+    crops_p = np.zeros((total, 3), np.int32)
+    crops_p[: n_images * n_real] = np.concatenate(
+        [crops + np.array([b * L, 0, 0], np.int32) for b in range(n_images)],
+        axis=0)
+    return batched, n_real, GridPyramidInfo(
+        pyr.scales, pyr.level_hw, torch.as_tensor(crops_p, device=device))

@@ -45,7 +45,9 @@ def localize_eyes(net: HierarchicalNetwork, dim_x: int, dim_y: int,
                   eye_boxes: torch.Tensor, angles: torch.Tensor,
                   pyramid: Optional[torch.Tensor] = None,
                   pyr_scales: Optional[torch.Tensor] = None,
-                  level_sampler: Optional[Callable] = None
+                  level_sampler: Optional[Callable] = None,
+                  image_idx: Optional[torch.Tensor] = None,
+                  n_base_levels: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One batched eye-localization pass.
 
@@ -56,6 +58,12 @@ def localize_eyes(net: HierarchicalNetwork, dim_x: int, dim_y: int,
             sampled from the pyramid by ``level_sampler`` (the gather
             kernel's wrapper or its plain version) at the levels of
             :func:`_eye_levels`; otherwise by the canvas gather.
+        image_idx/n_base_levels: fused multi-image batch -- ``image`` is a
+            (B, H, W) stack, ``image_idx`` the per-box image, ``pyramid``
+            the stacked per-image pyramids (B * n_base_levels levels) with
+            ``pyr_scales`` the single-image ladder TILED B times; the level
+            is chosen on the base ladder and folded per box
+            (level' = img * n_base_levels + level).
 
     Returns ``(new_boxes (B, 4), max_reg (B,))`` with max_reg =
     max(|reg_x|, |reg_y|); callers apply the "too far" gate.
@@ -64,7 +72,11 @@ def localize_eyes(net: HierarchicalNetwork, dim_x: int, dim_y: int,
     # NEAREST, like every reference extraction.
     if pyramid is not None and level_sampler is not None:
         bw = torch.abs(eye_boxes[:, 2] - eye_boxes[:, 0]) + 1.0
-        levels, no_cover = _eye_levels(pyr_scales, bw)
+        if image_idx is not None and n_base_levels > 0:
+            levels, no_cover = _eye_levels(pyr_scales[:n_base_levels], bw)
+            levels = levels + image_idx.to(torch.int32) * n_base_levels
+        else:
+            levels, no_cover = _eye_levels(pyr_scales, bw)
         patches = level_sampler(pyramid, pyr_scales, levels, eye_boxes,
                                 angles, patch_hw, method="nearest")
         # Rare: a box wider than the coarsest level's budget is re-sampled
@@ -73,10 +85,12 @@ def localize_eyes(net: HierarchicalNetwork, dim_x: int, dim_y: int,
             patches = torch.where(
                 no_cover[:, None, None],
                 extract_patches_rotate(image, eye_boxes, angles, patch_hw,
-                                       method="nearest"), patches)
+                                       method="nearest",
+                                       image_idx=image_idx), patches)
     else:
         patches = extract_patches_rotate(image, eye_boxes, angles, patch_hw,
-                                         method="nearest")
+                                         method="nearest",
+                                         image_idx=image_idx)
     flat = patches.reshape(patches.shape[0], -1)
     flat = contrast_enhance_patches(flat, obj_avg=0.11, obj_std=0.15)
     sl = net(flat)

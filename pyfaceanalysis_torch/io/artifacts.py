@@ -2,7 +2,8 @@
 
 Port of the loaders of ``pyfaceanalysis_tpu.io.artifacts`` (same archive
 format: ``idx_i``, ``mean_i``, ``W_i`` and a JSON ``meta`` per network;
-Gaussian fields ``means``, ``inv_covs``, ``log_norm``, ``avg_labels`` per
+Gaussian fields ``means``, ``inv_covs``, ``log_norm``, ``avg_labels`` or
+ridge fields ``w``, ``b``, ``clip_lo``, ``clip_hi``, ``resid_std`` per
 classifier; ``manifest.json`` with geometry headers and calibration).
 
 :func:`from_jax_params` builds the same modules from the JAX package's
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 
@@ -23,6 +24,10 @@ from pyfaceanalysis_torch.models.expansion import Expansion
 from pyfaceanalysis_torch.models.network import HierarchicalNetwork, LayerSpec
 from pyfaceanalysis_torch.models.sfa import LinearNode
 from pyfaceanalysis_torch.ops.gaussian import GaussianRegressor
+from pyfaceanalysis_torch.ops.ridge import RidgeRegressor
+
+_GAUSSIAN_FIELDS = ("means", "inv_covs", "log_norm", "avg_labels")
+_RIDGE_FIELDS = ("w", "b", "clip_lo", "clip_hi", "resid_std")
 
 
 def load_network(path: str) -> HierarchicalNetwork:
@@ -40,13 +45,12 @@ def load_network(path: str) -> HierarchicalNetwork:
     return HierarchicalNetwork(specs, params, tuple(meta["input_hw"]))
 
 
-def load_classifier(path: str) -> GaussianRegressor:
+def load_classifier(path: str) -> Union[GaussianRegressor, RidgeRegressor]:
+    """Either head type, told apart by the archive's fields."""
     with np.load(path) as z:
         if "w" in z.files:
-            raise NotImplementedError(
-                f"{path}: ridge classifiers are not ported yet")
-        return GaussianRegressor(z["means"], z["inv_covs"], z["log_norm"],
-                                 z["avg_labels"])
+            return RidgeRegressor(*(z[k] for k in _RIDGE_FIELDS))
+        return GaussianRegressor(*(z[k] for k in _GAUSSIAN_FIELDS))
 
 
 def load_calibration(dirpath: str) -> dict:
@@ -66,7 +70,7 @@ def load_manifest(dirpath: str) -> Tuple[NetGeometry, NetGeometry,
 
 
 def from_jax_params(layers: Sequence[dict] = (), input_hw=(64, 64),
-                    gaussian: dict = None):
+                    gaussian: dict = None, ridge: dict = None):
     """Port modules from the JAX package's parameters as numpy arrays.
 
     ``layers``: one dict per layer with ``field_indices`` ((F, k) ints, as
@@ -74,15 +78,19 @@ def from_jax_params(layers: Sequence[dict] = (), input_hw=(64, 64),
     ``out_dim``, ``clip``, ``mean`` and ``W`` (``LinearNode`` fields);
     returns a :class:`HierarchicalNetwork`. ``gaussian``: a dict with the
     ``GaussianRegressor`` fields ``means``, ``inv_covs``, ``log_norm`` and
-    ``avg_labels``; returns a :class:`GaussianRegressor`. Exactly one of
-    the two must be given.
+    ``avg_labels``; returns a :class:`GaussianRegressor`. ``ridge``: a dict
+    with the ``RidgeRegressor`` fields ``w``, ``b``, ``clip_lo``,
+    ``clip_hi`` and ``resid_std``; returns a :class:`RidgeRegressor`.
+    Exactly one of the three must be given.
     """
-    if (gaussian is None) == (not layers):
-        raise ValueError("give either layers or gaussian")
+    if (bool(layers) + (gaussian is not None) + (ridge is not None)) != 1:
+        raise ValueError("give exactly one of layers, gaussian and ridge")
     if gaussian is not None:
-        return GaussianRegressor(*(np.asarray(gaussian[k], np.float32) for k in
-                                   ("means", "inv_covs", "log_norm",
-                                    "avg_labels")))
+        return GaussianRegressor(*(np.asarray(gaussian[k], np.float32)
+                                   for k in _GAUSSIAN_FIELDS))
+    if ridge is not None:
+        return RidgeRegressor(*(np.asarray(ridge[k], np.float32)
+                                for k in _RIDGE_FIELDS))
     specs, params = [], []
     for lm in layers:
         specs.append(LayerSpec(

@@ -1,10 +1,12 @@
 """Rotated patch extraction: from the canvas, and from the scale pyramid.
 
 ``extract_patches_rotate`` is the port of
-``pyfaceanalysis_tpu.ops.patches.extract_patches_rotate`` for one image
-(the "canvas gather"): for each box, sample the image rotated by ``-angle``
-about the box centre, over the (subpixel) box, at ``(h, w)`` output
-pixels; out-of-image samples are 0. Boxes are ``[x0, y0, x1, y1]`` with
+``pyfaceanalysis_tpu.ops.patches.extract_patches_rotate`` (the "canvas
+gather"), for one image or a stack of images with a per-box image index:
+for each box, sample the image rotated by ``-angle`` about the box centre,
+over the (subpixel) box, at ``(h, w)`` output pixels; out-of-image samples
+are 0. ``extract_centered_patch`` is the axis-aligned sampled crop of the
+age path. Boxes are ``[x0, y0, x1, y1]`` with
 x1/y1 inclusive, so the sampled extent is ``[x0, x1 + 1)``. The operation
 order follows the JAX function so that nearest sampling rounds alike.
 
@@ -17,7 +19,7 @@ has no tile: every in-level texel is reachable, every out-of-level one is 0.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,12 +27,25 @@ import torch
 def extract_patches_rotate(image: torch.Tensor, boxes: torch.Tensor,
                            angles: torch.Tensor,
                            out_hw: Tuple[int, int] = (64, 64),
-                           method: str = "bilinear") -> torch.Tensor:
-    """(H, W) image, (B, 4) boxes, (B,) angles in degrees -> (B, h, w).
+                           method: str = "bilinear",
+                           image_idx: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """(H, W) image, (B, 4) boxes, (B,) angles in degrees -> (B, h, w);
+    or an (N, H, W) stack with ``image_idx`` (B,), the image of each box.
 
     A positive angle samples the patch rotated counter-clockwise in image
     coordinates (callers pass the face angle directly)."""
-    H, W = image.shape
+    if image.dim() == 3:
+        if image_idx is None:
+            raise ValueError("an image stack needs image_idx")
+        N, H, W = image.shape
+        # An index outside the stack (the fused cascade's padding rows
+        # carry the sentinel N) reads the last image; such rows are dead.
+        base = torch.clamp(image_idx.to(torch.int64), 0,
+                           N - 1)[:, None, None] * (H * W)
+    else:
+        H, W = image.shape
+        base = 0
     oh, ow = out_hw
     dev = image.device
     flat_img = image.to(torch.float32).reshape(-1)
@@ -58,7 +73,8 @@ def extract_patches_rotate(image: torch.Tensor, boxes: torch.Tensor,
 
     def tap(iy, ix):
         inb = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
-        idx = torch.clamp(iy, 0, H - 1) * W + torch.clamp(ix, 0, W - 1)
+        idx = (base + torch.clamp(iy, 0, H - 1) * W
+               + torch.clamp(ix, 0, W - 1))
         return torch.where(inb, flat_img[idx], 0.0)
 
     if method == "nearest":
@@ -75,6 +91,30 @@ def extract_patches_rotate(image: torch.Tensor, boxes: torch.Tensor,
     top = tap(iy0, ix0) * (1.0 - tx) + tap(iy0, ix0 + 1) * tx
     bot = tap(iy0 + 1, ix0) * (1.0 - tx) + tap(iy0 + 1, ix0 + 1) * tx
     return top * (1.0 - ty) + bot * ty
+
+
+def extract_centered_patch(image: torch.Tensor, sampling: float,
+                           first_row: float, first_col: float,
+                           trans_x: float, trans_y: float,
+                           out_hw: Tuple[int, int] = (96, 96)
+                           ) -> torch.Tensor:
+    """Axis-aligned sampled crop, the ``load_image_data_monoprocessor``
+    equivalent of the age path (face_analysis.py:1231-1247).
+
+    The box origin is ``(first_col + trans_x * sampling, first_row +
+    trans_y * sampling)`` (translations in subimage units), spanning
+    ``out * sampling`` source pixels, sampled bilinearly. Returns
+    (1, h, w)."""
+    oh, ow = out_hw
+    x0 = first_col + trans_x * sampling
+    y0 = first_row + trans_y * sampling
+    boxes = torch.tensor([[x0, y0, x0 + ow * sampling - 1.0,
+                           y0 + oh * sampling - 1.0]], dtype=torch.float32,
+                         device=image.device)
+    return extract_patches_rotate(
+        image, boxes, torch.zeros(1, dtype=torch.float32,
+                                  device=image.device), out_hw,
+        method="bilinear")
 
 
 def pyramid_affine(scales: torch.Tensor, levels: torch.Tensor,

@@ -6,6 +6,8 @@ Port of ``pyfaceanalysis_tpu.ops.pyramid``:
   level in the top-left corner of a fixed (lh, lw) plane, zero elsewhere.
   The ``ceil(H / s)`` extents and the half-to-even rounding of the sample
   positions are copied exactly, so the levels are bit-identical.
+- ``build_pyramid_batch``: the same for a stack of images, image-major
+  along the level axis (the layout of the fused multi-image cascade).
 - ``crop_patches``: (B, 3) int32 ``[level, y, x]`` -> (B, h, w) crops, with
   the start clamped into the pyramid as ``lax.dynamic_slice`` clamps it.
   This is the plain version of the crop kernel (ops.cuda_crop).
@@ -26,10 +28,24 @@ def build_pyramid(image: torch.Tensor, scales: Tuple[float, ...],
     scales[k] source pixels, sampled at pixel centres); out-of-image
     texels are 0.
     """
-    H, W = image.shape
     lh, lw = level_hw
-    dev = image.device
-    out = torch.zeros((len(scales), lh, lw), dtype=torch.float32, device=dev)
+    return build_pyramid_batch(image[None], scales, level_hw).reshape(
+        len(scales), lh, lw)
+
+
+def build_pyramid_batch(images: torch.Tensor, scales: Tuple[float, ...],
+                        level_hw: Tuple[int, int]) -> torch.Tensor:
+    """(B, H, W) image stack -> (B*L, lh, lw) image-major stacked pyramid.
+
+    Image b's levels occupy rows [b*L, (b+1)*L): the layout that the folded
+    crop levels of ``engine.cascade.make_batched_grid_state`` index. Each
+    level is one row take and one column take for the whole stack.
+    """
+    B, H, W = images.shape
+    lh, lw = level_hw
+    dev = images.device
+    out = torch.zeros((B, len(scales), lh, lw), dtype=torch.float32,
+                      device=dev)
     for k, s in enumerate(scales):
         hk = min(lh, max(1, int(-(-H // s))))      # ceil(H / s), capped
         wk = min(lw, max(1, int(-(-W // s))))
@@ -39,10 +55,10 @@ def build_pyramid(image: torch.Tensor, scales: Tuple[float, ...],
                           + 0.5) * s - 0.5).to(torch.int64)
         oky = (sy >= 0) & (sy < H)
         okx = (sx >= 0) & (sx < W)
-        rows = image[torch.clamp(sy, 0, H - 1)]               # (hk, W)
-        lvl = rows[:, torch.clamp(sx, 0, W - 1)]              # (hk, wk)
-        out[k, :hk, :wk] = torch.where(oky[:, None] & okx[None], lvl, 0.0)
-    return out
+        rows = images[:, torch.clamp(sy, 0, H - 1)]           # (B, hk, W)
+        lvl = rows[:, :, torch.clamp(sx, 0, W - 1)]           # (B, hk, wk)
+        out[:, k, :hk, :wk] = torch.where(oky[:, None] & okx[None], lvl, 0.0)
+    return out.reshape(B * len(scales), lh, lw)
 
 
 def crop_patches(pyramid: torch.Tensor, crops: torch.Tensor,

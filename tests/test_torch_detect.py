@@ -69,7 +69,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "pyfaceanalysis_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 15
+    assert len(files) > 20
+    assert {"heads.py", "normalization.py", "ridge.py", "images.py"} <= {
+        os.path.basename(f) for f in files}
     for path in files:
         with open(path) as f:
             bad = [ln for ln in f if pat.match(ln)]
@@ -107,7 +109,8 @@ def test_grid_state_matches_jax(hw):
     ts, tn, tp = t_cascade.make_grid_state(hw[1], hw[0], geom, TConfig())
     assert jn == tn and jp.scales == tp.scales and jp.level_hw == tp.level_hw
     np.testing.assert_array_equal(tp.crops.numpy(), np.asarray(jp.crops))
-    for a, b in zip(ts, js):
+    assert ts.img_idx is None and js.img_idx is None     # one image
+    for a, b in zip(ts[:9], js[:9]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
@@ -192,7 +195,7 @@ def test_run_cascade_matches_jax_canvas_path(shipped_models, collect_trace):
     assert alive.any()
     if collect_trace:           # the scale gate killed part of the grid
         assert alive.sum() < np.asarray(js.mask).sum()
-    for a, b in zip(tout, jout):
+    for a, b in zip(tout[:9], jout[:9]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
@@ -269,11 +272,11 @@ def test_run_cascade_ref_matches_jax_interpret():
             (64, 64), torch.from_numpy(img), tclfs, tstate,
             pyramid=torch.from_numpy(np.asarray(jpyr)),
             crops=torch.from_numpy(crops), pyr_scales=torch.ones(1))
-    for a, b in zip(touts["ref"], jout):
+    for a, b in zip(touts["ref"][:9], jout[:9]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
                                    atol=6e-3)
     for mode in ("on", "off"):
-        for a, b in zip(touts[mode], touts["ref"]):
+        for a, b in zip(touts[mode][:9], touts["ref"][:9]):
             assert torch.equal(a, b)
 
 
@@ -405,9 +408,3 @@ def test_nms_and_writer_match_jax(tmp_path):
         assert (tmp_path / f"t{flip}.txt").read_text() == \
             (tmp_path / f"j{flip}.txt").read_text()
 
-
-def test_detect_requires_attributes_off(shipped_models):
-    _, tm = shipped_models
-    d = t_detector.FaceDetector(tm, TConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        d.detect(np.zeros((80, 80), np.float32))

@@ -464,3 +464,70 @@ def test_gather_kernel_coefficients_equal_pyramid_affine_on_card(cuda_device,
     got = cuda_gather.kernel_affine(*args, hw)
     want = pyramid_affine(*args, hw)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _fused_stack(dev, n_images=4, hw=(400, 500)):
+    """A stacked pyramid with its folded grid, as detect_batch builds them:
+    (pyramid (B*L, lh, lw), tiled scales (B*L,), folded crops, state, L)."""
+    from pyfaceanalysis_torch.config import DetectorConfig, NetGeometry
+    from pyfaceanalysis_torch.engine.cascade import make_batched_grid_state
+    from pyfaceanalysis_torch.ops.pyramid import build_pyramid_batch
+    rng = np.random.RandomState(31)
+    stack = _t(rng.rand(n_images, *hw).astype(np.float32)).to(dev)
+    state, n_real, pyr = make_batched_grid_state(
+        hw[1], hw[0], NetGeometry(), DetectorConfig(), n_images, device=dev)
+    pyramid = build_pyramid_batch(stack, pyr.scales, pyr.level_hw)
+    scales = torch.tensor(pyr.scales * n_images, dtype=torch.float32,
+                          device=dev)
+    return pyramid, scales, pyr.crops, state, len(pyr.scales), n_real
+
+
+@pytest.mark.cuda
+def test_crop_kernel_fused_stack_on_card(cuda_device):
+    """Folded crop levels over a stacked pyramid: exact, one launch, and
+    every image's rows read that image's levels."""
+    pyramid, _, crops, state, L, n_real = _fused_stack(cuda_device)
+    before = cuda_crop.KERNEL.launches
+    got = cuda_crop.crop_patches_kernel(pyramid, crops, (64, 64))
+    torch.cuda.synchronize()
+    assert cuda_crop.KERNEL.launches == before + 1
+    assert torch.equal(got, t_crop(pyramid, crops, (64, 64)))
+    img = (crops[: 4 * n_real, 0] // L).to(torch.int32)
+    assert torch.equal(img, state.img_idx[: 4 * n_real])
+    assert not torch.equal(got[:n_real], got[n_real: 2 * n_real])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["nearest", "bilinear"])
+def test_gather_kernel_fused_stack_on_card(cuda_device, method):
+    """Folded levels (the strided int32 column of the crop table) and the
+    tiled scales over a stacked pyramid: coefficients bit for bit, pixels
+    equal outside rounding ties, one launch."""
+    pyramid, scales, crops, state, L, n_real = _fused_stack(cuda_device)
+    g = torch.Generator().manual_seed(5)
+    n = crops.shape[0]
+    boxes = state.boxes + (4.0 * torch.rand((n, 1), generator=g) - 2.0).to(
+        cuda_device)
+    angles = (48.0 * torch.rand(n, generator=g) - 24.0).to(cuda_device)
+    levels = crops[:, 0]
+    assert not levels.is_contiguous()
+    want_c = pyramid_affine(scales, levels, boxes, angles, (64, 64))
+    got_c = cuda_gather.kernel_affine(scales, levels, boxes, angles, (64, 64))
+    assert torch.equal(got_c.view(torch.int32), want_c.view(torch.int32))
+    before = cuda_gather.KERNEL.launches
+    got = cuda_gather.sample_patches_pyramid(pyramid, scales, levels, boxes,
+                                             angles, (64, 64), method)
+    torch.cuda.synchronize()
+    assert cuda_gather.KERNEL.launches == before + 1
+    want = sample_patches_pyramid_ref(pyramid, scales, levels, boxes, angles,
+                                      (64, 64), method)
+    lx, ly = level_coords(want_c, (64, 64))
+    ties = (((lx - torch.floor(lx) - 0.5).abs() < 1e-4)
+            | ((ly - torch.floor(ly) - 0.5).abs() < 1e-4))
+    assert int(((got != want) & ~ties).sum()) == 0
+    assert float((got - want).abs().max()) <= (1.0 if method == "nearest"
+                                               else 1e-5)
+    # A wrong scale table (the ladder not tiled) is refused, not misread.
+    with pytest.raises(ValueError, match="scales"):
+        cuda_gather.sample_patches_pyramid(pyramid, scales[:L], levels, boxes,
+                                           angles, (64, 64), method)
