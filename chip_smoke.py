@@ -49,6 +49,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    computed from this run's inputs (bytes over 3.35 TB/s HBM, or float32
    operations over 67 TFLOP/s). The same trace counts the GPU launches of
    one wrapper call: more than one fails.
+8. The command line: ``pyfaceanalysis_torch.apps.detect.main`` on the same
+   scenes, written as PNG files where PIL imports (the re-loaded 8-bit
+   array is then the scene that is compared), else held in memory behind
+   ``io.images.load_image``. Single-image mode with no ``--device`` (the
+   default must be the card): the rows appended equal, byte for byte,
+   ``write_detections`` of ``detect`` on the same array, and the call
+   launches 1 crop and as many gathers as one cascade has. Batch mode over
+   the 16 scenes (one shape group, one chunk, ``detect_stream``): each
+   output file equals ``write_detections`` of ``detect_batch``, with the
+   launches of one fused batch; a second run doubles every file.
+   ``--coordinates_filename`` with a truth file made from scene 0's own
+   detections: as many true positives as detections, no false positive or
+   negative, one per-stage report line per plan stage. With PIL,
+   ``--save_patches=1 --save_normalized_face_detections=1`` writes one
+   file per detection in each folder. Prints one ``{"cli": {...}}`` line.
 
 The last lines are one JSON object ``{"kernels": [...]}``, the output of
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and the
@@ -58,11 +73,14 @@ result line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -487,6 +505,200 @@ def compare_drift(label, got, want, min_share, px_tol) -> dict:
             "max_px": dpx}
 
 
+def run_cli(argv) -> str:
+    """``apps.detect.main`` on ``argv`` and the shipped artifact directory,
+    with what it prints captured, echoed with a prefix and returned; fails
+    on another return code than 0."""
+    from pyfaceanalysis_torch.apps import detect as cli
+    argv = ["--pipeline_dir=" + os.path.join(ROOT, "SavedNetworksTPU"), *argv]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(argv)
+    for line in text.getvalue().splitlines():
+        print(f"cli| {line}")
+    if rc != 0:
+        fail(f"apps.detect.main({argv}) returned {rc}")
+    return text.getvalue()
+
+
+def own_rows(tmp, name, dets, cfg) -> bytes:
+    """The bytes ``write_detections`` makes of ``dets`` under ``cfg``'s
+    switches, as ``apps.detect`` passes them."""
+    from pyfaceanalysis_torch.io import writers
+    path = os.path.join(tmp, name)
+    writers.write_detections(
+        path, dets, right_screen_eye_first=cfg.right_screen_eye_first,
+        write_age_race_gender_confidence=(
+            cfg.write_age_race_gender_confidence and cfg.estimate_age))
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def read_bytes(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def cli_phase(torch, det, plan, scenes, n_gathers, reset_counts, counts,
+              tmp) -> dict:
+    """Phase 8 (see the module's text): ``apps.detect.main`` on the card in
+    single-image, batch, evaluation and side-output mode, held against
+    ``det`` (default config) on the same arrays."""
+    from pyfaceanalysis_torch.io import images as im_io
+    cfg = det.config
+    names = [os.path.join(tmp, f"scene{i:02d}.png")
+             for i in range(len(scenes))]
+    if im_io._HAVE_PIL:
+        route = "png"
+        for name, scene in zip(names, scenes):
+            im_io.save_image(name, scene)
+    else:
+        # No image library on this machine: the tool reads the same 8-bit
+        # scenes from memory instead of from files. Device and kernels are
+        # the tool's own either way.
+        route = "memory"
+        held = {name: np.clip(scene * 255.0, 0, 255).astype(np.uint8)
+                .astype(np.float32) / 255.0
+                for name, scene in zip(names, scenes)}
+        im_io.load_image = (
+            lambda path, prescale_size=1000, mode="L": (held[path], 1.0))
+        print("cli: PIL does not import; io.images.load_image replaced by "
+              "the scenes held in memory for this phase")
+    loaded = []
+    for name in names:
+        image, factor = im_io.load_image(name, cfg.prescale_size)
+        if factor != 1.0 or image.shape != scenes[0].shape:
+            fail(f"{name} came back as {image.shape} at factor {factor}")
+        loaded.append(image)
+    one_cascade = {"crop": 1, "gather": n_gathers}
+
+    # Single-image mode, no --device: the default must be the card.
+    out = os.path.join(tmp, "single.txt")
+    reset_counts()
+    run_cli([names[0], out])
+    launches_single = counts()
+    want = det.detect(loaded[0])
+    if not want:
+        fail("cli: detect found no face in the re-loaded scene 0")
+    if read_bytes(out) != own_rows(tmp, "own_single.txt", want, cfg):
+        fail("cli single-image rows differ from write_detections of detect")
+    if launches_single != one_cascade:
+        fail(f"cli single-image mode must launch {one_cascade}, not "
+             f"{launches_single}")
+    print(f"cli single: {len(want)} rows, byte-equal to write_detections of "
+          f"detect, launches {launches_single}")
+
+    # Batch mode: one shape group, one chunk, detect_stream.
+    outs = [os.path.join(tmp, f"rows{i:02d}.txt") for i in range(len(names))]
+    batch_file = os.path.join(tmp, "batch.txt")
+    with open(batch_file, "w") as f:
+        for name, o in zip(names, outs):
+            f.write(f"{name}\n{o}\n")
+    walls, launches_batch, table = [], None, {}
+    for run in (1, 2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = run_cli(["--batch=" + batch_file])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if counts() != one_cascade:
+            fail(f"cli batch run {run} must launch {one_cascade}, not "
+                 f"{counts()}")
+        launches_batch = counts()
+        if run == 1:
+            want_b = [own_rows(tmp, f"own{i:02d}.txt", d, cfg)
+                      for i, d in enumerate(det.detect_batch(loaded))]
+        for i, o in enumerate(outs):
+            if read_bytes(o) != want_b[i] * run:
+                fail(f"cli batch run {run}: {o} is not {run} x "
+                     "write_detections of detect_batch")
+        for line in text.splitlines():       # the tool's own phase table
+            for label in ("Loaded networks and classifiers",
+                          "Images loaded (batch)", "Batched detection"):
+                if line.startswith(label):
+                    table[label] = float(line[60:].split()[0]) * 1e3
+    batch_rows = sum(b.count(b"\n") for b in want_b)
+    if batch_rows == 0:
+        fail("cli batch mode wrote no row")
+    print(f"cli batch of {len(names)}: {batch_rows} rows in {len(outs)} "
+          f"files, byte-equal to write_detections of detect_batch, doubled "
+          f"by a second run; launches {launches_batch}; wall "
+          f"{walls[0]:.1f} ms then {walls[1]:.1f} ms per main() (model "
+          f"load, {route} loading, detection and writing); its own table "
+          f"of the second run, ms: {table}")
+
+    # Evaluation beside a detector on the card: truth from scene 0's own
+    # detections (8 floats: eyes, nose, mouth; the mouth where the 6-float
+    # format puts it, the nose half way down).
+    truth = os.path.join(tmp, "truth.txt")
+    with open(truth, "w") as f:
+        for d in want:
+            (elx, ely), (erx, ery) = d.eye_left, d.eye_right
+            mx, my = (elx + erx) / 2.0, (ely + ery) / 2.0 + (
+                erx - elx) * 42.0 / 37.0
+            f.write(f"{os.path.basename(names[0])}\n{elx} {ely} {erx} {ery} "
+                    f"{mx} {((ely + ery) / 2.0 + my) / 2.0} {mx} {my}\n")
+    out_eval = os.path.join(tmp, "eval.txt")
+    reset_counts()
+    text = run_cli(["--coordinates_filename=" + truth, "--write_results=0",
+                    names[0], out_eval])
+    launches_eval = counts()
+    final = text[text.index("ground-truth evaluation:"):]
+    tp, fp, fn = (int(final.split(label)[1].split()[0]) for label in (
+        "true positives:", "false positives:", "false negatives:"))
+    stage_lines = [ln for ln in text.splitlines() if ln.startswith("After ")]
+    print(f"cli evaluation: {tp} TP, {fp} FP, {fn} FN for {len(want)} "
+          f"detections; {len(stage_lines)} per-stage lines for {len(plan)} "
+          f"plan stages; launches {launches_eval} (the traced cascade and "
+          f"the production run)")
+    if (tp, fp, fn) != (len(want), 0, 0):
+        fail("cli evaluation against its own detections is not all true "
+             "positives")
+    if len(stage_lines) != len(plan):
+        fail("cli per-stage report does not have one line per plan stage")
+    if os.path.exists(out_eval):
+        fail("--write_results=0 wrote a file")
+    if any(launches_eval[k] < n for k, n in one_cascade.items()):
+        fail(f"cli evaluation run launched {launches_eval}")
+
+    # Side outputs (they are image files, so only with PIL).
+    side = None
+    if route == "png":
+        here = os.getcwd()
+        work = os.path.join(tmp, "side")
+        os.makedirs(work)
+        os.chdir(work)
+        try:
+            run_cli(["--save_patches=1", "--save_normalized_face_detections=1",
+                     "--write_results=0", "--verbose=0", names[0], out_eval])
+        finally:
+            os.chdir(here)
+        side = {}
+        for folder, hw in (("saved_patches", (64, 64)),
+                           ("normalized_face_detections", (192, 256))):
+            files = sorted(os.listdir(os.path.join(work, folder)))
+            side[folder] = len(files)
+            for name in files:
+                arr, _ = im_io.load_image(os.path.join(work, folder, name),
+                                          None)
+                if arr.shape != hw or not arr.std() > 0.01:
+                    fail(f"cli side output {folder}/{name}: shape "
+                         f"{arr.shape}, std {arr.std()}")
+            if len(files) != len(want):
+                fail(f"cli wrote {len(files)} files into {folder} for "
+                     f"{len(want)} detections")
+        print(f"cli side outputs: {side} files for {len(want)} detections")
+    return {"images": route, "single_rows": len(want),
+            "batch_rows": batch_rows, "launches_single": launches_single,
+            "launches_batch": launches_batch, "launches_eval": launches_eval,
+            "eval": {"tp": tp, "fp": fp, "fn": fn,
+                     "stage_lines": len(stage_lines)},
+            "side_outputs": side, "wall_ms_batch_cli": walls[1],
+            "wall_ms_batch_cli_first": walls[0],
+            "cli_table_ms": table}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -895,6 +1107,17 @@ def main() -> None:
               f"{method}: device {ms:.6f} ms in {n} GPU launch per call")
         if n is not None and n > 1:
             fail(f"one gather wrapper call ({label}) made {n} GPU launches")
+    # -- 8. the command line ----------------------------------------------------
+    from pyfaceanalysis_torch.io import images as im_io
+    real_load_image = im_io.load_image
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            cli = cli_phase(torch, det, model.plan, scenes, n_gathers,
+                            reset_counts, counts, tmp)
+        finally:
+            im_io.load_image = real_load_image
+    cli["wall_ms_detect_batch"] = batch_ms
+    print(json.dumps({"cli": cli}))
     entries = []
     for name, single, fused, line in (
             ("crop", crop_1, crop_b, "pallas_crop.py:73"),
@@ -912,6 +1135,8 @@ def main() -> None:
             "launches_fused_batch": launches_batch[name],
             "launches_stream": {f: c[name]
                                 for f, c in launches_stream.items()},
+            "launches_cli": {"single": cli["launches_single"][name],
+                             "batch": cli["launches_batch"][name]},
             "fused": fused})
     torch.cuda.synchronize()
     print(json.dumps({"paths": {

@@ -489,8 +489,9 @@ class FaceDetector:
                     calib.get("tolerance_xy_eye", 9.0)))
         if config.data_mesh > 1:
             raise NotImplementedError(
-                "config.data_mesh > 1: the data mesh (parallel/mesh) is "
-                "not ported yet")
+                "config.data_mesh > 1 (--data_mesh): the data mesh "
+                "(parallel/mesh, the last item of ROADMAP.md's porting "
+                "queue) is not ported yet")
         self.model = model.to(self.device)
         self.config = config
         self.face_has_been_found = False

@@ -1,10 +1,11 @@
-"""Artifact loading: trained networks + classifiers as .npz files.
+"""Artifact store: trained networks + classifiers as .npz files.
 
-Port of the loaders of ``pyfaceanalysis_tpu.io.artifacts`` (same archive
-format: ``idx_i``, ``mean_i``, ``W_i`` and a JSON ``meta`` per network;
-Gaussian fields ``means``, ``inv_covs``, ``log_norm``, ``avg_labels`` or
-ridge fields ``w``, ``b``, ``clip_lo``, ``clip_hi``, ``resid_std`` per
-classifier; ``manifest.json`` with geometry headers and calibration).
+Port of ``pyfaceanalysis_tpu.io.artifacts``. The archive format is the same,
+so a directory written by either package loads in the other: ``idx_i``,
+``mean_i``, ``W_i`` and a JSON ``meta`` per network; Gaussian fields
+``means``, ``inv_covs``, ``log_norm``, ``avg_labels`` or ridge fields ``w``,
+``b``, ``clip_lo``, ``clip_hi``, ``resid_std`` per classifier;
+``manifest.json`` with geometry headers and calibration.
 
 :func:`from_jax_params` builds the same modules from the JAX package's
 in-memory parameters passed as numpy arrays, so tests can run both packages
@@ -13,6 +14,7 @@ with identical weights.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Sequence, Tuple, Union
@@ -30,6 +32,29 @@ _GAUSSIAN_FIELDS = ("means", "inv_covs", "log_norm", "avg_labels")
 _RIDGE_FIELDS = ("w", "b", "clip_lo", "clip_hi", "resid_std")
 
 
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def save_network(path: str, net: HierarchicalNetwork) -> None:
+    arrays = {}
+    meta = {"input_hw": list(net.input_hw), "layers": []}
+    for i, (spec, node) in enumerate(zip(net.specs, net.params)):
+        arrays[f"idx_{i}"] = spec.indices_array()
+        arrays[f"mean_{i}"] = _np(node.mean)
+        arrays[f"W_{i}"] = _np(node.W)
+        meta["layers"].append({
+            "expansion": spec.expansion.name,
+            "exponent": spec.expansion.exponent,
+            "out_dim": spec.out_dim,
+            "node": spec.node,
+            "slow_dim": spec.slow_dim,
+            "clip": spec.clip,
+        })
+    arrays["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+
+
 def load_network(path: str) -> HierarchicalNetwork:
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta"]).decode())
@@ -45,12 +70,40 @@ def load_network(path: str) -> HierarchicalNetwork:
     return HierarchicalNetwork(specs, params, tuple(meta["input_hw"]))
 
 
+def save_classifier(path: str, clf: Union[GaussianRegressor, RidgeRegressor],
+                    input_dim: int) -> None:
+    """``input_dim`` is the feature-truncation width (classifier.input_dim in
+    the reference, FaceDetectUpdated.py:709). Either head type."""
+    if input_dim != clf.input_dim:
+        raise ValueError(f"input_dim {input_dim} is not the classifier's "
+                         f"{clf.input_dim}")
+    if isinstance(clf, GaussianRegressor):
+        np.savez_compressed(
+            path, **{k: _np(getattr(clf, k)) for k in _GAUSSIAN_FIELDS})
+    else:
+        np.savez_compressed(
+            path, head=np.asarray("ridge"),
+            **{k: _np(getattr(clf, k)) for k in _RIDGE_FIELDS})
+
+
 def load_classifier(path: str) -> Union[GaussianRegressor, RidgeRegressor]:
     """Either head type, told apart by the archive's fields."""
     with np.load(path) as z:
         if "w" in z.files:
             return RidgeRegressor(*(z[k] for k in _RIDGE_FIELDS))
         return GaussianRegressor(*(z[k] for k in _GAUSSIAN_FIELDS))
+
+
+def save_manifest(dirpath: str, face_geom: NetGeometry,
+                  eye_geom: NetGeometry, age_geom: NetGeometry,
+                  calibration: dict = None) -> None:
+    with open(os.path.join(dirpath, "manifest.json"), "w") as f:
+        json.dump({
+            "face_geom": dataclasses.asdict(face_geom),
+            "eye_geom": dataclasses.asdict(eye_geom),
+            "age_geom": dataclasses.asdict(age_geom),
+            "calibration": calibration or {},
+        }, f, indent=2)
 
 
 def load_calibration(dirpath: str) -> dict:

@@ -113,3 +113,23 @@ def parse_pipeline(path: str) -> PipelineSpec:
         pos += 3
     return PipelineSpec(face_geom, eye_geom, age_geom, tuple(stages))
 
+
+def write_pipeline(path: str, spec: PipelineSpec) -> None:
+    """Serializes a PipelineSpec back to the reference text format."""
+    g = spec.face_geom
+    e = spec.eye_geom
+    a = spec.age_geom
+    lines = [str(spec.num_networks)]
+    lines.append(f"{g.Dx:g} {g.Dy:g} {g.Dang:g} {g.mins:g} {g.maxs:g} "
+                 f"{g.subimage_width} {g.subimage_height} "
+                 f"{g.regression_width} {g.regression_height}")
+    for gg in (e, a):
+        lines.append(f"{gg.Dx:g} {gg.Dy:g} {gg.mins:g} {gg.maxs:g} "
+                     f"{gg.subimage_width} {gg.subimage_height} "
+                     f"{gg.regression_width} {gg.regression_height}")
+    for s in spec.stages:
+        lines.append(s.raw_type)
+        lines.append(s.network_name + ".pckl")
+        lines.append(s.classifier_name + ".pckl")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")

@@ -189,7 +189,9 @@ def normalize_image(image, coords,
                     background: str = "zero",
                     device=None) -> np.ndarray:
     """Host convenience wrapper: (H, W) array in [0, 1] -> normalized array,
-    sampled on ``device`` (default ``cuda``).
+    sampled on ``device`` (default ``cuda``). A tensor is taken as it is
+    and, with no ``device`` given, sampled where it lies, so a caller with
+    many faces of one image copies it to the device once.
 
     background="random" fills out-of-frame pixels with noise seeded from
     ``rng``, like the reference's allow_random_background path
@@ -201,7 +203,11 @@ def normalize_image(image, coords,
     if background == "random":
         seed = int((rng or np.random.RandomState()).randint(2 ** 31))
         generator = torch.Generator().manual_seed(seed)
-    img = torch.as_tensor(np.asarray(image, np.float32),
-                          device=resolve_device(device))
+    if torch.is_tensor(image):
+        img = image.to(device=image.device if device is None
+                       else resolve_device(device), dtype=torch.float32)
+    else:
+        img = torch.as_tensor(np.asarray(image, np.float32),
+                              device=resolve_device(device))
     return sample_frame(img, fp, out_size, background=background,
                         generator=generator).cpu().numpy()

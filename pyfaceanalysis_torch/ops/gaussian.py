@@ -1,6 +1,7 @@
 """Gaussian classifier used as a soft regressor -- the cascade "decoder".
 
-Port of ``pyfaceanalysis_tpu.ops.gaussian.GaussianRegressor`` (inference):
+Port of ``pyfaceanalysis_tpu.ops.gaussian.GaussianRegressor`` (inference and
+the constructor from legacy-style arrays; ``fit`` belongs to training):
 
     P(c | x) ~ prior_c / sqrt_det_cov_c * exp(-1/2 (x - mu_c)^T A_c (x - mu_c))
     regression(x) = sum_c P(c | x) * avg_labels_c
@@ -40,6 +41,19 @@ class GaussianRegressor(nn.Module):
         """Feature truncation width (classifier ``input_dim``)."""
         return self.means.shape[1]
 
+    @staticmethod
+    def create(means, inv_covs, sqrt_det_covs, priors, avg_labels
+               ) -> "GaussianRegressor":
+        """From the attributes of a legacy ``GaussianClassifier``: ``means``
+        (C, D), ``inv_covs`` (C, D, D), ``sqrt_det_covs`` (C,) =
+        sqrt(det(cov_c)), ``priors`` (C,), ``avg_labels`` (C,). The log
+        normalizer is formed in float64 before the float32 buffers are
+        made."""
+        sqrt_det_covs = np.asarray(sqrt_det_covs, np.float64)
+        priors = np.asarray(priors, np.float64)
+        log_norm = np.log(priors) - np.log(sqrt_det_covs)
+        return GaussianRegressor(means, inv_covs, log_norm, avg_labels)
+
     def log_posteriors(self, x: torch.Tensor) -> torch.Tensor:
         """(B, D) -> (B, C) unnormalized log posteriors, in the centred form
         (x - mu)^T A (x - mu): the expanded form loses digits to
@@ -69,6 +83,10 @@ class GaussianRegressor(nn.Module):
         second = p @ (self.avg_labels ** 2)
         var = torch.clamp(second - reg ** 2, min=0.0)
         return reg, torch.sqrt(var)
+
+    def classify(self, x: torch.Tensor) -> torch.Tensor:
+        """Hard class index (argmax posterior), mirror of MDP ``label()``."""
+        return torch.argmax(self.log_posteriors(x), dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.regression(x)
