@@ -64,6 +64,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    negative, one per-stage report line per plan stage. With PIL,
    ``--save_patches=1 --save_normalized_face_detections=1`` writes one
    file per detection in each folder. Prints one ``{"cli": {...}}`` line.
+9. Training: ``pyfaceanalysis_torch.apps.train.main`` with ``--quick``,
+   no real photos, TRAIN_CALIB_SCENES calibration scenes and no
+   ``--device`` (full width: 64x64 and 96x96 patches, the 17-stage plan;
+   only sample counts are cut), into a temporary directory. Its launches
+   must equal the number derived from the code: per calibration scene one
+   traced cascade without eye pass and one production run, through the
+   kernels only where the calibration's grid (320 px, smallest_face 0.15)
+   has a pyramid path; it has none, in the JAX package as here, so 0. The
+   directory must hold every network and classifier of the trainer's
+   stage layout, ``Pipeline_tpu.txt`` and a calibrated manifest, and load
+   with 22 classifiers; ``detect`` on it equals its "ref" route (1e-3 px)
+   with 1 crop and 7 gathers per call. ``train_network`` on one quick pose
+   set, drawn once on the CPU, runs on the card and on the CPU (full
+   width): per-layer differences up to sign and the held-out PosX
+   regressions are printed, not gated (its near-degenerate trailing
+   columns rotate between any two solvers); on a set driven by one latent
+   (well-separated spectra) the held-out regressions are held to
+   TRAIN_CARD_VS_CPU_*. One ``train_network`` call is profiled. The
+   sha256 of every file of ``SavedNetworksTPU/`` and
+   ``SavedNetworksTPU_photo/`` must be the same after the phase. Prints
+   one ``{"train": {...}}`` line.
 
 The last lines are one JSON object ``{"kernels": [...]}``, the output of
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and the
@@ -74,9 +95,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
+import inspect
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -102,6 +126,19 @@ FUSED_VS_SEQUENTIAL_SHARE = 0.9
 FUSED_VS_SEQUENTIAL_PX = {"bf16": 4.0, "f32": 1.0}
 # Images of the fused batch: 8,192 window rows and 128 pyramid levels.
 B = 16
+# Phase 9: calibration scenes of the quick training run and smoke scenes
+# through the trained directory.
+TRAIN_CALIB_SCENES = 3
+TRAIN_SCENES = 4
+# train_network on the card against the CPU at full width, on the
+# one-latent set (latent_set): a held-out regression of the latent, largest
+# difference as a share of its range and the correlation of the two sides.
+# Reading on an H100 at 700 W: 0.000299 of the range, correlation 1.0 to 8
+# digits (the CPU port against the JAX package on the CPU, same set:
+# 0.00029, 0.99999999). With float32 eigensolves on the card it read
+# 0.0246 and 0.99986 (see models/moments.py).
+TRAIN_CARD_VS_CPU_REG = 0.005
+TRAIN_CARD_VS_CPU_CORR = 0.9999
 
 
 def fail(msg: str) -> None:
@@ -699,6 +736,263 @@ def cli_phase(torch, det, plan, scenes, n_gathers, reset_counts, counts,
             "cli_table_ms": table}
 
 
+def tree_hashes(*dirs) -> dict:
+    """sha256 of every file under ``dirs`` (relative path -> hex digest)."""
+    out = {}
+    for d in dirs:
+        for root, _, files in os.walk(os.path.join(ROOT, d)):
+            for name in files:
+                path = os.path.join(root, name)
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, ROOT)] = hashlib.sha256(
+                        f.read()).hexdigest()
+    return out
+
+
+def latent_set(n: int, seed: int, K: int = 24, side: int = 64):
+    """(n, side * side) float32 patches driven by one latent u in
+    [-0.95, 0.95] and u: K Legendre polynomials of u, each on its own fixed
+    random pixel pattern with a falling amplitude, plus faint noise.
+    Functions of one variable have a simple slowness spectrum, so every
+    layer's output columns are well determined (tests/
+    test_torch_training_models.py uses the same construction at 16x16)."""
+    from numpy.polynomial import legendre
+    rng = np.random.RandomState(seed)
+    u = rng.uniform(-0.95, 0.95, n)
+    polys = np.stack([legendre.legval(u, np.eye(K + 1)[k])
+                      for k in range(1, K + 1)], 1)
+    patterns = np.random.RandomState(1000).randn(K, side, side)
+    img = (0.5 + np.einsum("nk,k,kij->nij", polys, 0.1 * 0.9 ** np.arange(K),
+                           patterns) + 0.003 * rng.randn(n, side, side))
+    return img.reshape(n, -1).astype(np.float32), u
+
+
+def card_vs_cpu(torch, x, labels, target, x_held, target_held, fit_kw):
+    """``train_network`` of build_higsfa(64, top_dim=20) on ``x`` on the
+    card and on the CPU, a 10-feature Gaussian regressor of ``target`` fit
+    on each side's features, both applied to ``x_held``: per-layer
+    differences up to sign, the share of columns within 1e-2, and the two
+    regressions' largest difference and correlation."""
+    from pyfaceanalysis_torch.models import builder
+    from pyfaceanalysis_torch.models.network import apply_layer
+    from pyfaceanalysis_torch.training import trainer
+    sides = {"card": "cuda", "cpu": "cpu"}
+    nets, regs, ms = {}, {}, {}
+    for side, dev in sides.items():
+        xd = x.to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nets[side] = trainer.train_network(
+            builder.build_higsfa(64, top_dim=20), xd, labels=labels,
+            **fit_kw)
+        torch.cuda.synchronize()
+        ms[side] = (time.perf_counter() - t0) * 1e3
+        clf = trainer.fit_regressor_bins(trainer._execute(nets[side], xd),
+                                         target, 10, 50)
+        held = trainer._execute(nets[side], x_held.to(dev))
+        regs[side] = clf.regression(torch.as_tensor(held[:, :10])).numpy()
+    layer_err, layer_share = [], []
+    cur = {side: x.to(dev) for side, dev in sides.items()}
+    for li, spec in enumerate(nets["card"].specs):
+        for side, net in nets.items():
+            cur[side] = apply_layer(spec, net.params[li], net.indices[li],
+                                    cur[side])
+        a, b = cur["card"].cpu().double(), cur["cpu"].double()
+        d = torch.minimum((a - b).abs().amax(0), (a + b).abs().amax(0))
+        layer_err.append(float(d.max()))
+        layer_share.append(float((d <= 1e-2).double().mean()))
+    return {"patches": len(x), "ms_card": ms["card"], "ms_cpu": ms["cpu"],
+            "layer_max_up_to_sign": layer_err,
+            "layer_share_within_1e-2": layer_share,
+            "reg_max_abs": float(np.abs(regs["card"] - regs["cpu"]).max()),
+            "label_span": float(np.ptp(target_held)),
+            "reg_corr": float(np.corrcoef(regs["card"], regs["cpu"])[0, 1])}
+
+
+def train_phase(torch, scenes, reset_counts, counts, tmp) -> dict:
+    """Phase 9 (see the module's text): ``apps.train.main`` on the card, the
+    trained directory through both refinement routes, and ``train_network``
+    on the card against the CPU."""
+    from pyfaceanalysis_torch.apps import train as train_app
+    from pyfaceanalysis_torch.config import DetectorConfig, NetGeometry
+    from pyfaceanalysis_torch.engine.cascade import make_grid_state
+    from pyfaceanalysis_torch.engine.detector import (
+        DetectionModel,
+        FaceDetector,
+    )
+    from pyfaceanalysis_torch.models import builder
+    from pyfaceanalysis_torch.training import calibration, datasets, trainer
+    from pyfaceanalysis_torch.training.sampler import Sampler
+
+    shipped = ("SavedNetworksTPU", "SavedNetworksTPU_photo")
+    hashes = tree_hashes(*shipped)
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(tmp, "trained")
+    argv = ["--quick", "--out_dir", out_dir, "--real_frac=0",
+            "--real_bg_frac=0", f"--calib_scenes={TRAIN_CALIB_SCENES}"]
+    text = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = train_app.main(argv)            # no --device: the card
+    torch.cuda.synchronize()
+    wall_main = time.perf_counter() - t0
+    launches_train = counts()
+    peak_main = torch.cuda.max_memory_allocated()
+    log = text.getvalue()
+    for line in log.splitlines():
+        if line.startswith("[train]") or line.startswith("calibration"):
+            print(f"train| {line}")
+    if rc != 0:
+        fail(f"apps.train.main({argv}) returned {rc}")
+    split = {}
+    for m in re.finditer(r"\[train\] (\S+): done \(render ([\d.]+) s, fit "
+                         r"([\d.]+) s, features ([\d.]+) s, gaussian "
+                         r"([\d.]+) s\)", log):
+        split[m.group(1)] = dict(zip(("render", "fit", "features",
+                                      "gaussian"),
+                                     map(float, m.groups()[1:])))
+    m = re.search(r"\[train\] calibration: done in ([\d.]+) s", log)
+    calib_s = float(m.group(1)) if m else None
+    # (a) the calibration's launches, derived from the code: each scene is
+    # one traced cascade (no eye pass) and one production run, through the
+    # kernels when its grid has a pyramid path. The calibration's grid (320
+    # px canvas, smallest_face 0.15) has crop origins outside their levels,
+    # so make_grid_state gives no pyramid and both runs take the canvas
+    # gather, in the JAX package as here: 0 launches.
+    model = DetectionModel.load(out_dir, device="cuda")
+    n_extract = sum(st.extract for st in model.plan)
+    eye_iters = DetectorConfig().eye_iters
+    defaults = {k: v.default for k, v in inspect.signature(
+        calibration.calibrate_model).parameters.items()}
+    calib_cfg = DetectorConfig(smallest_face=defaults["smallest_face"],
+                               cut_offs_face=(2.0,) * 10,
+                               last_cut_off_face=2.0)
+    side = defaults["canvas"]
+    _, _, calib_pyr = make_grid_state(side, side, model.spec.face_geom,
+                                      calib_cfg)
+    per_scene = ({"crop": 2, "gather": 2 * (n_extract - 1) + eye_iters}
+                 if calib_pyr is not None else {"crop": 0, "gather": 0})
+    want = {k: TRAIN_CALIB_SCENES * n for k, n in per_scene.items()}
+    print(f"apps.train.main --quick: {wall_main:.1f} s, launches "
+          f"{launches_train} (expected {TRAIN_CALIB_SCENES} calibration "
+          f"scenes x {per_scene}: the calibration grid has "
+          f"{'a' if calib_pyr is not None else 'no'} pyramid path), peak "
+          f"device memory {peak_main / 1e6:.0f} MB; per network {split}; "
+          f"calibration {calib_s} s")
+    if launches_train != want:
+        fail(f"apps.train.main must launch {want}, not {launches_train}")
+    if sorted(split) != sorted({n for _, n, _, _ in trainer._STAGE_LAYOUT
+                                if n != "None0"}):
+        fail(f"the trainer's log has no time line for some network: "
+             f"{sorted(split)}")
+    # (b) the directory
+    for _, net, clf, _ in trainer._STAGE_LAYOUT:
+        for name in {net, clf} - {"None0"}:
+            if not os.path.exists(os.path.join(out_dir, name + ".npz")):
+                fail(f"the trained directory has no {name}.npz")
+    if not os.path.exists(os.path.join(out_dir, "Pipeline_tpu.txt")):
+        fail("the trained directory has no Pipeline_tpu.txt")
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        calib = json.load(f)["calibration"]
+    if (len(calib.get("cut_offs_face", ())) != 10
+            or "last_cut_off_face" not in calib
+            or "tolerance_xy_eye" not in calib):
+        fail(f"the manifest is not calibrated: {calib}")
+    if len(model.classifiers) != 22:
+        fail(f"DetectionModel.load read {len(model.classifiers)} "
+             "classifiers")
+    # (c) the trained directory through the kernels and the plain versions
+    det = FaceDetector(model, DetectorConfig(), device="cuda")
+    det_ref = FaceDetector(model, DetectorConfig(pallas_refine="ref"),
+                           device="cuda")
+    one_cascade = {"crop": 1, "gather": n_extract - 1 + eye_iters}
+    got, ref = [], []
+    for scene in scenes[:TRAIN_SCENES]:
+        reset_counts()
+        got.append(det.detect(scene))
+        if counts() != one_cascade:
+            fail(f"detect on the trained model launched {counts()}, not "
+                 f"{one_cascade}")
+        ref.append(det_ref.detect(scene))
+    compare_lists("trained model: detect, kernel path vs ref path", got,
+                  ref, 1e-3, attr_tol=1e-3)
+    # (d) train_network on the card against the CPU. First on one quick
+    # pose set, drawn once on the CPU and copied: readings only. Its
+    # trailing feature columns are near-degenerate, so any two solvers
+    # rotate them; the next layer's nonlinear expansion is not
+    # rotation-equivariant, so the networks part ways (the CPU port and the
+    # JAX package do the same). Then on a set driven by one latent
+    # (well-separated spectra in every layer): gated.
+    geom = NetGeometry()
+    x, lab = datasets.pose_dataset(Sampler(11), 24, 16, geom, 40.0, 20.0,
+                                   22.5, contrast_normalize=True,
+                                   attr_cues="v2")
+    x_held, lab_held = datasets.pose_dataset(Sampler(12), 24, 16, geom, 40.0,
+                                             20.0, 22.5,
+                                             contrast_normalize=True,
+                                             attr_cues="v2")
+    fit_kw = dict(graph="serial", num_groups=50, verbose=False)
+    pose = card_vs_cpu(torch, x, np.stack([lab["dx"], lab["dy"]], axis=1),
+                       lab["dx"], x_held, lab_held["dx"],
+                       dict(fit_kw, label_weights=(1.0, 1.5)))
+    lx, lu = latent_set(2000, 21)
+    lx_held, lu_held = latent_set(500, 22)
+    latent = card_vs_cpu(torch, torch.from_numpy(lx), lu, lu,
+                         torch.from_numpy(lx_held), lu_held, fit_kw)
+    for name, r in (("quick pose set (reading)", pose),
+                    ("one-latent set (gated)", latent)):
+        print(f"train_network card vs CPU, {name}: build_higsfa(64, "
+              f"top_dim=20) on {r['patches']} patches, {r['ms_card']:.1f} "
+              f"ms on the card, {r['ms_cpu']:.1f} ms on the CPU; largest "
+              f"per-layer difference up to sign "
+              f"{[round(e, 6) for e in r['layer_max_up_to_sign']]}, share "
+              f"of columns within 1e-2 "
+              f"{[round(e, 4) for e in r['layer_share_within_1e-2']]}; "
+              f"held-out regression max |diff| {r['reg_max_abs']} "
+              f"({r['reg_max_abs'] / r['label_span']:.6f} of the label "
+              f"range {r['label_span']:.3f}), correlation "
+              f"{r['reg_corr']:.8f}")
+    if (latent["reg_max_abs"] > TRAIN_CARD_VS_CPU_REG * latent["label_span"]
+            or latent["reg_corr"] < TRAIN_CARD_VS_CPU_CORR):
+        fail("train_network on the card disagrees with the CPU beyond the "
+             f"stated tolerance ({TRAIN_CARD_VS_CPU_REG} of the label "
+             f"range, correlation {TRAIN_CARD_VS_CPU_CORR})")
+    # (e) device busy time and GPU launches of one train_network call
+    xd = x.to("cuda")
+    labels = np.stack([lab["dx"], lab["dy"]], axis=1)
+    spans, wall = device_spans(
+        torch, lambda: trainer.train_network(builder.build_higsfa(
+            64, top_dim=20), xd, labels=labels, label_weights=(1.0, 1.5),
+            **fit_kw), 1)
+    busy = launches = None
+    if spans is not None:
+        busy = sum(sum(d) for d in spans.values()) / 1e3
+        launches = sum(len(d) for d in spans.values())
+        print(f"train_network under the profiler: wall {wall:.1f} ms, "
+              f"device busy {busy:.1f} ms (idle share "
+              f"{1 - busy / wall:.4f}), {launches} GPU launches")
+    else:
+        print(f"train_network under the profiler: wall {wall:.1f} ms; "
+              "device busy time and GPU launches not measured")
+    if tree_hashes(*shipped) != hashes:
+        fail("phase 9 changed a file of the shipped artifact directories")
+    phase_s = time.perf_counter() - t_phase
+    print(f"training phase: {phase_s:.1f} s; {len(hashes)} files of "
+          f"{', '.join(shipped)} hash the same before and after")
+    return {"wall_s_main_quick": wall_main, "per_network_s": split,
+            "calibration_s": calib_s, "launches_main": launches_train,
+            "launches_expected": want, "peak_bytes_main": peak_main,
+            "train_network": {"patches": len(x),
+                              "profiled_wall_ms": wall, "busy_ms": busy,
+                              "gpu_launches": launches},
+            "card_vs_cpu": {"quick_pose": pose, "one_latent": latent},
+            "trained_detections": sum(len(d) for d in got),
+            "phase_s": phase_s}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1118,6 +1412,10 @@ def main() -> None:
             im_io.load_image = real_load_image
     cli["wall_ms_detect_batch"] = batch_ms
     print(json.dumps({"cli": cli}))
+    # -- 9. training ------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        train = train_phase(torch, scenes, reset_counts, counts, tmp)
+    print(json.dumps({"train": train}))
     entries = []
     for name, single, fused, line in (
             ("crop", crop_1, crop_b, "pallas_crop.py:73"),
@@ -1137,6 +1435,7 @@ def main() -> None:
                                 for f, c in launches_stream.items()},
             "launches_cli": {"single": cli["launches_single"][name],
                              "batch": cli["launches_batch"][name]},
+            "launches_train": train["launches_main"][name],
             "fused": fused})
     torch.cuda.synchronize()
     print(json.dumps({"paths": {

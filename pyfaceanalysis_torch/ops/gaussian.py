@@ -1,7 +1,7 @@
 """Gaussian classifier used as a soft regressor -- the cascade "decoder".
 
-Port of ``pyfaceanalysis_tpu.ops.gaussian.GaussianRegressor`` (inference and
-the constructor from legacy-style arrays; ``fit`` belongs to training):
+Port of ``pyfaceanalysis_tpu.ops.gaussian.GaussianRegressor``: inference,
+the constructor from legacy-style arrays and the host ``fit``:
 
     P(c | x) ~ prior_c / sqrt_det_cov_c * exp(-1/2 (x - mu_c)^T A_c (x - mu_c))
     regression(x) = sum_c P(c | x) * avg_labels_c
@@ -53,6 +53,42 @@ class GaussianRegressor(nn.Module):
         priors = np.asarray(priors, np.float64)
         log_norm = np.log(priors) - np.log(sqrt_det_covs)
         return GaussianRegressor(means, inv_covs, log_norm, avg_labels)
+
+    @staticmethod
+    def fit(x, labels, avg_labels=None, reg: float = 1e-3
+            ) -> "GaussianRegressor":
+        """Trains per-class Gaussians in float64 numpy on the host (the
+        JAX package's fit, copied); the module is made on the CPU.
+
+        Args:
+            x: (N, D) features.
+            labels: (N,) integer class indices in [0, C).
+            avg_labels: (C,) regression target per class; defaults to the
+                class index as float.
+            reg: relative Tikhonov term: ``reg * mean(diag(cov))`` is added
+                to each covariance diagonal (guards small/degenerate classes).
+        """
+        x = np.asarray(x, np.float64)
+        labels = np.asarray(labels)
+        classes = np.unique(labels)
+        C, D = len(classes), x.shape[1]
+        means = np.zeros((C, D))
+        inv_covs = np.zeros((C, D, D))
+        log_sqrt_det = np.zeros(C)
+        priors = np.zeros(C)
+        for i, c in enumerate(classes):
+            xc = x[labels == c]
+            priors[i] = len(xc) / len(x)
+            means[i] = xc.mean(axis=0)
+            cov = np.atleast_2d(np.cov(xc, rowvar=False, bias=False))
+            scale = max(np.trace(cov) / D, 1e-12)
+            cov = cov + (reg * scale + 1e-12) * np.eye(D)
+            inv_covs[i] = np.linalg.inv(cov)
+            log_sqrt_det[i] = 0.5 * np.linalg.slogdet(cov)[1]
+        if avg_labels is None:
+            avg_labels = classes.astype(np.float64)
+        return GaussianRegressor(means, inv_covs,
+                                 np.log(priors) - log_sqrt_det, avg_labels)
 
     def log_posteriors(self, x: torch.Tensor) -> torch.Tensor:
         """(B, D) -> (B, C) unnormalized log posteriors, in the centred form
