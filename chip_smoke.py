@@ -76,15 +76,35 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    stage layout, ``Pipeline_tpu.txt`` and a calibrated manifest, and load
    with 22 classifiers; ``detect`` on it equals its "ref" route (1e-3 px)
    with 1 crop and 7 gathers per call. ``train_network`` on one quick pose
-   set, drawn once on the CPU, runs on the card and on the CPU (full
-   width): per-layer differences up to sign and the held-out PosX
-   regressions are printed, not gated (its near-degenerate trailing
-   columns rotate between any two solvers); on a set driven by one latent
-   (well-separated spectra) the held-out regressions are held to
-   TRAIN_CARD_VS_CPU_*. One ``train_network`` call is profiled. The
+   set and on a set driven by one latent, each drawn once on the CPU, runs
+   on the card and on the CPU (full width): per-layer differences up to
+   sign are printed, and the held-out regressions (PosX; the latent) are
+   held to TRAIN_CARD_VS_CPU_*. One ``train_network`` call is profiled. The
    sha256 of every file of ``SavedNetworksTPU/`` and
    ``SavedNetworksTPU_photo/`` must be the same after the phase. Prints
    one ``{"train": {...}}`` line.
+10. The data mesh (``parallel.mesh``, ``parallel.train_step``). (a) On a
+   one-card mesh ``sharded_cascade`` equals ``run_cascade`` and ``detect``
+   equals the unsharded ``detect``, bit for bit, with 1 crop and 7
+   gathers. (b) A fused ``detect_batch`` of the 16 scenes on a mesh of
+   MESH_SHARDS shards of the one card against the unsharded fused batch,
+   at bf16 and at float32 operands (f32 wire), held to the drift gate of
+   phase 5 (a shard's products are MESH_SHARDS times shorter); launches
+   per call exactly MESH_SHARDS crops and MESH_SHARDS x 6 refinement
+   gathers + the eye pass's (the rungs, ranking and eye pass run over all
+   rows on the first device). (c) ``detect_stream`` under that mesh
+   equals ``detect_batch`` under it (1e-3 px). (d) ``train_network`` on
+   the one-latent set with a one-card and the MESH_SHARDS-shard mesh
+   against unsharded: first-layer moments within atol 1e-5 / rtol 1e-4,
+   held-out regressions within TRAIN_CARD_VS_CPU_*. (e) ``gsfa_step`` and
+   ``sharded_gsfa_step`` (a 4 x 2 mesh of the card) against the CPU: mean
+   within rtol 1e-4 / atol 1e-5, W up to sign within rtol 1e-2 / atol
+   1e-3. (f) ``apps.train.main --quick --data_mesh=1 --no_calibrate``
+   into a temporary directory, which ``detect`` runs with 1 crop and 7
+   gathers. (g) ``parallel.dryrun.dryrun_multichip(1, "cuda")``. Wall
+   times of a one-card mesh against unsharded for ``detect``, the fused
+   batch and ``train_network``, of each step and of the phase. Prints one
+   ``{"mesh": {...}}`` line.
 
 The last lines are one JSON object ``{"kernels": [...]}``, the output of
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` and the
@@ -133,12 +153,16 @@ TRAIN_SCENES = 4
 # train_network on the card against the CPU at full width, on the
 # one-latent set (latent_set): a held-out regression of the latent, largest
 # difference as a share of its range and the correlation of the two sides.
-# Reading on an H100 at 700 W: 0.000299 of the range, correlation 1.0 to 8
-# digits (the CPU port against the JAX package on the CPU, same set:
-# 0.00029, 0.99999999). With float32 eigensolves on the card it read
-# 0.0246 and 0.99986 (see models/moments.py).
+# Readings on an H100 at 700 W with float64 moments (the trainer's): 0.000062
+# of the range, correlation 1.0 to 8 digits; on the quick pose set 0.000103
+# and 1.0. With float32 moments the one-latent set read 0.000299 and the
+# quick pose set 0.859 and 0.884 (its trailing slow directions followed
+# the summation order); with float32 eigensolves 0.0246 and 0.99986 (see
+# models/moments.py).
 TRAIN_CARD_VS_CPU_REG = 0.005
 TRAIN_CARD_VS_CPU_CORR = 0.9999
+# Phase 10: shards of the virtual mesh (all on the one card).
+MESH_SHARDS = 4
 
 
 def fail(msg: str) -> None:
@@ -919,13 +943,9 @@ def train_phase(torch, scenes, reset_counts, counts, tmp) -> dict:
         ref.append(det_ref.detect(scene))
     compare_lists("trained model: detect, kernel path vs ref path", got,
                   ref, 1e-3, attr_tol=1e-3)
-    # (d) train_network on the card against the CPU. First on one quick
-    # pose set, drawn once on the CPU and copied: readings only. Its
-    # trailing feature columns are near-degenerate, so any two solvers
-    # rotate them; the next layer's nonlinear expansion is not
-    # rotation-equivariant, so the networks part ways (the CPU port and the
-    # JAX package do the same). Then on a set driven by one latent
-    # (well-separated spectra in every layer): gated.
+    # (d) train_network on the card against the CPU, on one quick pose set
+    # and on a set driven by one latent (well-separated spectra in every
+    # layer), each drawn once on the CPU and copied.
     geom = NetGeometry()
     x, lab = datasets.pose_dataset(Sampler(11), 24, 16, geom, 40.0, 20.0,
                                    22.5, contrast_normalize=True,
@@ -942,8 +962,7 @@ def train_phase(torch, scenes, reset_counts, counts, tmp) -> dict:
     lx_held, lu_held = latent_set(500, 22)
     latent = card_vs_cpu(torch, torch.from_numpy(lx), lu, lu,
                          torch.from_numpy(lx_held), lu_held, fit_kw)
-    for name, r in (("quick pose set (reading)", pose),
-                    ("one-latent set (gated)", latent)):
+    for name, r in (("quick pose set", pose), ("one-latent set", latent)):
         print(f"train_network card vs CPU, {name}: build_higsfa(64, "
               f"top_dim=20) on {r['patches']} patches, {r['ms_card']:.1f} "
               f"ms on the card, {r['ms_cpu']:.1f} ms on the CPU; largest "
@@ -955,11 +974,12 @@ def train_phase(torch, scenes, reset_counts, counts, tmp) -> dict:
               f"({r['reg_max_abs'] / r['label_span']:.6f} of the label "
               f"range {r['label_span']:.3f}), correlation "
               f"{r['reg_corr']:.8f}")
-    if (latent["reg_max_abs"] > TRAIN_CARD_VS_CPU_REG * latent["label_span"]
-            or latent["reg_corr"] < TRAIN_CARD_VS_CPU_CORR):
-        fail("train_network on the card disagrees with the CPU beyond the "
-             f"stated tolerance ({TRAIN_CARD_VS_CPU_REG} of the label "
-             f"range, correlation {TRAIN_CARD_VS_CPU_CORR})")
+        if (r["reg_max_abs"] > TRAIN_CARD_VS_CPU_REG * r["label_span"]
+                or r["reg_corr"] < TRAIN_CARD_VS_CPU_CORR):
+            fail(f"train_network on the card disagrees with the CPU on the "
+                 f"{name} beyond the stated tolerance "
+                 f"({TRAIN_CARD_VS_CPU_REG} of the label range, "
+                 f"correlation {TRAIN_CARD_VS_CPU_CORR})")
     # (e) device busy time and GPU launches of one train_network call
     xd = x.to("cuda")
     labels = np.stack([lab["dx"], lab["dy"]], axis=1)
@@ -990,6 +1010,288 @@ def train_phase(torch, scenes, reset_counts, counts, tmp) -> dict:
                               "gpu_launches": launches},
             "card_vs_cpu": {"quick_pose": pose, "one_latent": latent},
             "trained_detections": sum(len(d) for d in got),
+            "phase_s": phase_s}
+
+
+def exceeds(torch, got, want, rtol, atol) -> float:
+    """Largest amount by which |got - want| exceeds atol + rtol * |want|
+    (0 or less: within the tolerance), in float64 on the CPU."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def up_to_sign(torch, W, ref):
+    """``W`` with each output column's sign flipped to agree with ``ref``
+    ((F, D, O) weights)."""
+    W, ref = W.detach().double().cpu(), ref.detach().double().cpu()
+    return W * torch.sign((W * ref).sum(dim=-2, keepdim=True))
+
+
+def mesh_phase(torch, model, det, scenes, reset_counts, counts, tmp, warm,
+               dev) -> dict:
+    """Phase 10 (see the module's text): the data mesh on the card ``dev``
+    (cuda:0), a one-card mesh and MESH_SHARDS shards of the one card."""
+    from pyfaceanalysis_torch.apps import train as train_app
+    from pyfaceanalysis_torch.config import DetectorConfig
+    from pyfaceanalysis_torch.engine import cascade as cascade_mod
+    from pyfaceanalysis_torch.engine.detector import (
+        DetectionModel,
+        FaceDetector,
+    )
+    from pyfaceanalysis_torch.models import builder, moments
+    from pyfaceanalysis_torch.ops.pyramid import build_pyramid
+    from pyfaceanalysis_torch.parallel import dryrun, train_step
+    from pyfaceanalysis_torch.parallel.mesh import (
+        Mesh,
+        make_mesh,
+        shard_batch,
+        sharded_cascade,
+    )
+    from pyfaceanalysis_torch.training import trainer
+
+    t_phase = time.perf_counter()
+    step_s = {}
+    eye_iters = det.config.eye_iters
+
+    def per_call(plan, n_shards):
+        """Launches of one cascade call on ``n_shards`` shards: each shard
+        crops its rows and gathers them at every later extraction; the eye
+        pass runs once, on the first device, over all survivors."""
+        n_extract = sum(st.extract for st in plan)
+        return {"crop": n_shards,
+                "gather": n_shards * (n_extract - 1) + eye_iters}
+
+    mesh1 = make_mesh(1, device=dev)
+    # MESH_SHARDS shards of the one card: make_mesh takes distinct cards,
+    # so the mesh is built from an explicit device list, the counterpart
+    # of the JAX dry run's explicit Mesh(...).
+    meshN = Mesh(np.array([dev] * MESH_SHARDS, dtype=object), ("data",))
+    print(f"mesh: {mesh1} and {meshN}")
+
+    # (a) one-card mesh: the unsharded program, bit for bit
+    t0 = time.perf_counter()
+    img = scenes[0]
+    im_h, im_w = img.shape
+    state, _, pyr = det._grid_state(im_w, im_h)
+    canvas = det._to_canvas(img)
+    geom = model.spec.face_geom
+    args = (model.plan, model.det_nets, geom, det.config,
+            (geom.subimage_height, geom.subimage_width), canvas,
+            model.det_clfs, state)
+    kw = dict(pyramid=build_pyramid(canvas, pyr.scales, pyr.level_hw),
+              crops=pyr.crops, pyr_scales=det._scales(pyr))
+    reset_counts()
+    want = cascade_mod.run_cascade(*args, **kw)
+    launches_plain = counts()
+    reset_counts()
+    got = sharded_cascade(mesh1, *args, **kw)
+    launches_sharded = counts()
+    for name, a, b in zip(want._fields, got, want):
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            fail(f"sharded_cascade on a one-card mesh: {name} differs")
+    cascade_calls = {"crop": 1, "gather": per_call(model.plan, 1)["gather"]
+                     - eye_iters}
+    print(f"sharded_cascade on a one-card mesh: every field equal to "
+          f"run_cascade; launches {launches_sharded} (unsharded "
+          f"{launches_plain})")
+    if launches_sharded != launches_plain or launches_plain != cascade_calls:
+        fail(f"sharded_cascade must launch {cascade_calls}")
+    det1 = FaceDetector(model, DetectorConfig(), device=dev)
+    # data_mesh=1 takes no mesh, as in the JAX package: the one-card mesh
+    # is set here to drive the mesh path.
+    det1._mesh = mesh1
+    reset_counts()
+    dets1 = det1.detect(img)
+    launches_detect1 = counts()
+    compare_lists("detect on a one-card mesh vs unsharded (exact)", [dets1],
+                  [det.detect(img)], 0.0, conf_tol=0.0, attr_tol=0.0)
+    if launches_detect1 != per_call(model.plan, 1):
+        fail(f"detect on a one-card mesh launched {launches_detect1}")
+    step_s["a_one_card"] = time.perf_counter() - t0
+
+    # (b) fused batch on MESH_SHARDS shards against unsharded
+    t0 = time.perf_counter()
+    want_calls = per_call(model.plan, MESH_SHARDS)
+    drift, launches_batch = {}, None
+    for op in ("bf16", "f32"):
+        cfg = DetectorConfig(wire_format="f32", matmul_dtype=op)
+        plain = FaceDetector(model, cfg, device=dev)
+        sharded = FaceDetector(model, cfg, device=dev)
+        sharded._mesh = meshN                   # see meshN above
+        want_b = plain.detect_batch(scenes)
+        reset_counts()
+        got_b = sharded.detect_batch(scenes)
+        launches_batch = counts()
+        print(f"detect_batch of {B} on {MESH_SHARDS} shards ({op} "
+              f"operands): launches {launches_batch} per call (expected "
+              f"{want_calls})")
+        if launches_batch != want_calls:
+            fail(f"a fused batch on {MESH_SHARDS} shards must launch "
+                 f"{want_calls}")
+        drift[op] = compare_drift(
+            f"detect_batch on {MESH_SHARDS} shards vs unsharded (f32 wire, "
+            f"{op} operands)", got_b, want_b, FUSED_VS_SEQUENTIAL_SHARE,
+            FUSED_VS_SEQUENTIAL_PX[op])
+    step_s["b_fused_batch"] = time.perf_counter() - t0
+
+    # (c) stream against batch, both on the sharded detector
+    t0 = time.perf_counter()
+    detN = FaceDetector(model, DetectorConfig(), device=dev)
+    detN._mesh = meshN                          # see meshN above
+    batches = [scenes[: B // 2], scenes[B // 2:]]
+    want_s = [detN.detect_batch(b) for b in batches]
+    reset_counts()
+    got_s = list(detN.detect_stream(iter(batches)))
+    launches_stream = counts()
+    if len(got_s) != len(batches):
+        fail(f"detect_stream on {MESH_SHARDS} shards yielded {len(got_s)} "
+             "batches")
+    for i, (g, w) in enumerate(zip(got_s, want_s)):
+        compare_lists(f"detect_stream on {MESH_SHARDS} shards, batch {i}, "
+                      "vs detect_batch on them", g, w, 1e-3, attr_tol=1e-3)
+    want_stream = {k: len(batches) * n for k, n in want_calls.items()}
+    print(f"detect_stream on {MESH_SHARDS} shards: launches "
+          f"{launches_stream} (expected {want_stream})")
+    if launches_stream != want_stream:
+        fail(f"detect_stream on {MESH_SHARDS} shards must launch "
+             f"{want_stream}")
+    step_s["c_stream"] = time.perf_counter() - t0
+
+    # (d) train_network on the meshes against unsharded (one-latent set)
+    t0 = time.perf_counter()
+    lx, lu = latent_set(2000, 21)
+    lx_held, lu_held = latent_set(500, 22)
+    x = torch.from_numpy(lx).to(dev)
+    fit_kw = dict(graph="serial", labels=lu, num_groups=50, verbose=False)
+    meshes = {"one card": mesh1, f"{MESH_SHARDS} shards": meshN}
+    nets = {"unsharded": trainer.train_network(
+        builder.build_higsfa(64, top_dim=20), x, **fit_kw)}
+    for name, mesh in meshes.items():
+        nets[name] = trainer.train_network(
+            builder.build_higsfa(64, top_dim=20), x, mesh=mesh, **fit_kw)
+    first = nets["unsharded"]
+    inp = first.specs[0].expansion(x[:, first.indices[0]]).double()
+    want_m = moments.gsfa_moments(inp, "serial", labels=lu, num_groups=50)
+    regs = {}
+    for name, net in nets.items():
+        clf = trainer.fit_regressor_bins(trainer._execute(net, x), lu, 10,
+                                         50)
+        regs[name] = clf.regression(torch.as_tensor(trainer._execute(
+            net, torch.from_numpy(lx_held).to(dev))[:, :10])).numpy()
+    span = float(np.ptp(lu_held))
+    train_cmp = {}
+    for name, mesh in meshes.items():
+        got_m = moments.gsfa_moments(shard_batch(mesh, inp), "serial",
+                                     labels=lu, num_groups=50)
+        excess = max(exceeds(torch, a, b, 1e-4, 1e-5)
+                     for a, b in zip(got_m, want_m))
+        d = float(np.abs(regs[name] - regs["unsharded"]).max())
+        corr = float(np.corrcoef(regs[name], regs["unsharded"])[0, 1])
+        train_cmp[name] = {"moments_excess": excess, "reg_max_abs": d,
+                           "reg_share_of_range": d / span, "reg_corr": corr}
+        print(f"train_network on {name} vs unsharded (one-latent set, "
+              f"build_higsfa(64, top_dim=20)): first-layer moments exceed "
+              f"atol 1e-5 / rtol 1e-4 by {excess} (<= 0 passes); held-out "
+              f"regression max |diff| {d} ({d / span:.6f} of the range, "
+              f"gate {TRAIN_CARD_VS_CPU_REG}), correlation {corr:.8f} "
+              f"(gate {TRAIN_CARD_VS_CPU_CORR})")
+        if (excess > 0 or d > TRAIN_CARD_VS_CPU_REG * span
+                or corr < TRAIN_CARD_VS_CPU_CORR):
+            fail(f"train_network on {name} disagrees with unsharded")
+    step_s["d_train_network"] = time.perf_counter() - t0
+
+    # (e) the GSFA step on the card against the CPU
+    t0 = time.perf_counter()
+    xs = np.random.RandomState(1).randn(64, 8, 6).astype(np.float32)
+    ref_mean, ref_W = train_step.gsfa_step(torch.from_numpy(xs), 3)
+    mesh2d = Mesh(np.array([dev] * 8, dtype=object).reshape(4, 2),
+                  ("data", "model"))
+    step_cmp = {}
+    for name, (mean, W) in (
+            ("gsfa_step", train_step.gsfa_step(
+                torch.from_numpy(xs).to(dev), 3)),
+            ("sharded_gsfa_step 4x2", train_step.sharded_gsfa_step(
+                mesh2d, xs, 3))):
+        e_mean = exceeds(torch, mean, ref_mean, 1e-4, 1e-5)
+        e_W = exceeds(torch, up_to_sign(torch, W, ref_W), ref_W, 1e-2, 1e-3)
+        step_cmp[name] = {"mean_excess": e_mean, "W_excess": e_W}
+        print(f"{name} on the card vs gsfa_step on the CPU: mean exceeds "
+              f"rtol 1e-4 / atol 1e-5 by {e_mean}, W up to sign exceeds "
+              f"rtol 1e-2 / atol 1e-3 by {e_W} (<= 0 passes)")
+        if e_mean > 0 or e_W > 0:
+            fail(f"{name} on the card disagrees with the CPU")
+    step_s["e_gsfa_step"] = time.perf_counter() - t0
+
+    # (f) apps.train on a one-card mesh, then detect on what it trained
+    t0 = time.perf_counter()
+    out_dir = os.path.join(tmp, "mesh_trained")
+    argv = ["--quick", "--data_mesh=1", "--no_calibrate", "--out_dir",
+            out_dir, "--real_frac=0", "--real_bg_frac=0",
+            f"--device={dev.type}"]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = train_app.main(argv)
+    torch.cuda.synchronize()
+    wall_train_main = time.perf_counter() - t0
+    if rc != 0 or "sharded over a 1-device data mesh" not in text.getvalue():
+        fail(f"apps.train.main({argv}) returned {rc} or trained off the "
+             "mesh")
+    trained = DetectionModel.load(out_dir, device=dev)
+    det_t = FaceDetector(trained, DetectorConfig(), device=dev)
+    reset_counts()
+    dets_t = det_t.detect(scenes[0])
+    launches_trained = counts()
+    print(f"apps.train --quick --data_mesh=1: {wall_train_main:.1f} s; "
+          f"detect on its directory: {len(dets_t)} detections, launches "
+          f"{launches_trained}")
+    if launches_trained != per_call(trained.plan, 1):
+        fail(f"detect on the mesh-trained directory launched "
+             f"{launches_trained}")
+    step_s["f_apps_train"] = time.perf_counter() - t0
+
+    # (g) the dry run on one card
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        dryrun.dryrun_multichip(1, dev.type)
+    for line in text.getvalue().splitlines():
+        print(f"dryrun| {line}")
+    step_s["g_dryrun"] = time.perf_counter() - t0
+
+    # Wall times: one-card mesh against unsharded
+    wall = {}
+    for name, fn in (
+            ("detect, unsharded", lambda: det.detect(img)),
+            ("detect, one-card mesh", lambda: det1.detect(img)),
+            (f"detect_batch {B}, unsharded", lambda: det.detect_batch(scenes)),
+            (f"detect_batch {B}, one-card mesh",
+             lambda: det1.detect_batch(scenes)),
+            (f"detect_batch {B}, {MESH_SHARDS} shards",
+             lambda: detN.detect_batch(scenes)),
+            ("train_network, unsharded", lambda: trainer.train_network(
+                builder.build_higsfa(64, top_dim=20), x, **fit_kw)),
+            ("train_network, one-card mesh", lambda: trainer.train_network(
+                builder.build_higsfa(64, top_dim=20), x, mesh=mesh1,
+                **fit_kw)),
+            (f"train_network, {MESH_SHARDS} shards",
+             lambda: trainer.train_network(
+                 builder.build_higsfa(64, top_dim=20), x, mesh=meshN,
+                 **fit_kw))):
+        times = wall_ms(torch, fn, warm)
+        wall[name] = statistics.median(times)
+        print(f"wall time ({name}): median {wall[name]:.3f} ms over {warm} "
+              f"warm runs {[round(t, 3) for t in times]}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"mesh phase: {phase_s:.1f} s; steps (s) "
+          f"{ {k: round(v, 2) for k, v in step_s.items()} }")
+    return {"shards": MESH_SHARDS, "launches_detect_one_card":
+            launches_detect1, "launches_batch": launches_batch,
+            "launches_stream": launches_stream,
+            "launches_trained_detect": launches_trained,
+            "drift": drift, "train_network": train_cmp,
+            "gsfa_step": step_cmp, "wall_ms": wall,
+            "wall_s_apps_train_quick": wall_train_main, "step_s": step_s,
             "phase_s": phase_s}
 
 
@@ -1416,6 +1718,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         train = train_phase(torch, scenes, reset_counts, counts, tmp)
     print(json.dumps({"train": train}))
+    # -- 10. the data mesh ------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = mesh_phase(torch, model, det, scenes, reset_counts, counts,
+                          tmp, args.warm, torch.device("cuda", 0))
+    print(json.dumps({"mesh": mesh}))
     entries = []
     for name, single, fused, line in (
             ("crop", crop_1, crop_b, "pallas_crop.py:73"),
@@ -1436,6 +1743,9 @@ def main() -> None:
             "launches_cli": {"single": cli["launches_single"][name],
                              "batch": cli["launches_batch"][name]},
             "launches_train": train["launches_main"][name],
+            "launches_mesh": {"fused_batch": mesh["launches_batch"][name],
+                              "one_card_detect":
+                                  mesh["launches_detect_one_card"][name]},
             "fused": fused})
     torch.cuda.synchronize()
     print(json.dumps({"paths": {

@@ -7,9 +7,11 @@ with the same default and the same ``--quick`` sizes, plus ``--device``.
 Every network and classifier of the 22-stage pipeline is trained on
 procedurally generated faces (training.synth), then the disc ladder and
 eye gate are calibrated. The run is on the card unless ``--device=cpu``
-is given; without a card it raises. ``--data_mesh`` above 0 raises: the
-data mesh is not ported. ``--out_dir`` defaults to ``SavedNetworksTPU``,
-the shipped artifacts, which a run overwrites: name another directory.
+is given; without a card it raises. ``--data_mesh=N`` (N >= 1) shards
+every network's moment accumulation over a data mesh of N devices of that
+kind (N copies of the CPU with ``--device=cpu``). ``--out_dir`` defaults
+to ``SavedNetworksTPU``, the shipped artifacts, which a run overwrites:
+name another directory.
 """
 
 from __future__ import annotations
@@ -161,7 +163,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "the bg-budget cap")
     p.add_argument("--data_mesh", type=int, default=0,
                    help="shard every network's moment accumulation over an "
-                        "N-device data mesh (not ported: above 0 raises)")
+                        "N-device data mesh (0 = one device)")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="device to train on (default cuda; raises without "
                         "a card)")

@@ -24,6 +24,7 @@ canvas (``extract_patches_rotate``) or each window's own pyramid level
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -141,6 +142,191 @@ def level_samplers(cfg: DetectorConfig, device: torch.device
     raise ValueError(f"unknown pallas_refine {mode!r}")
 
 
+class Shard(NamedTuple):
+    """One device's part of a cascade run: its rows of the window state and
+    of the crop table, and its copies of the replicated inputs (see
+    ``parallel.mesh.cascade_shards``)."""
+
+    state: CascadeState
+    crops: Optional[torch.Tensor]
+    nets: Sequence
+    clfs: Sequence
+    image: torch.Tensor
+    pyramid: Optional[torch.Tensor]
+    pyr_scales: Optional[torch.Tensor]
+
+
+# Per-row tensors a shard carries from stage to stage: the state's fields,
+# the grid levels of the level-space route, the last patches and features.
+_ROWS = CascadeState._fields + ("levels", "patches", "sl")
+
+
+def _on(device: torch.device):
+    """Makes ``device`` current while a shard's work is enqueued (the
+    kernels launch on the current device)."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _gather(blocks: Sequence[Optional[torch.Tensor]]
+            ) -> Optional[torch.Tensor]:
+    """Per-shard row blocks -> all rows on the first block's device (the
+    block itself for one shard)."""
+    if len(blocks) == 1 or blocks[0] is None:
+        return blocks[0]
+    lead = blocks[0].device
+    return torch.cat([b.to(lead) for b in blocks], dim=0)
+
+
+def _take(rows: List[dict], idx: torch.Tensor,
+          devices: Sequence[torch.device]) -> List[dict]:
+    """The rows ``idx`` (global indices, on the first device, in order) of
+    every per-row tensor, split again into contiguous blocks over
+    ``devices``.
+
+    One shard indexes its rows in place. Over several shards ``idx`` comes
+    to the host (a few KB; the host waits for the device here), and each
+    distinct device takes the rows of its blocks from every source block
+    that holds some of them: one gather per source block, on the source's
+    device, so that only chosen rows move; then, where several sources
+    gave rows, one reordering. Its blocks are views of the result."""
+    if len(rows) == 1:
+        r = rows[0]
+        return [{k: None if r[k] is None else r[k][idx] for k in _ROWS}]
+    offsets = np.cumsum([0] + [r["mask"].shape[0] for r in rows])
+    chosen = idx.cpu().numpy()
+    src = np.searchsorted(offsets, chosen, side="right") - 1
+    sizes = [len(p) for p in np.array_split(chosen, len(devices))]
+    bounds = np.cumsum([0] + sizes)
+    host: Dict[torch.device, list] = {}
+    plans = []
+    for dev in dict.fromkeys(devices):
+        blocks = [j for j, d in enumerate(devices) if d == dev]
+        pos = np.concatenate([np.arange(bounds[j], bounds[j + 1])
+                              for j in blocks])
+        # (source block, its local rows in output order, their positions)
+        pieces = []
+        for s in np.unique(src[pos]):
+            p = pos[src[pos] == s]
+            pieces.append((s, _stash(host, rows[s]["mask"].device,
+                                     chosen[p] - offsets[s]), p))
+        order = (_stash(host, dev, np.argsort(
+            np.concatenate([p for _, _, p in pieces]), kind="stable"))
+            if len(pieces) > 1 else None)
+        plans.append((dev, blocks, pieces, order))
+    # One copy of the host indices to each device.
+    dev_idx = {d: torch.as_tensor(np.concatenate(a), device=d).split(
+        [len(x) for x in a]) for d, a in host.items()}
+    out: List[dict] = [{} for _ in devices]
+    for dev, blocks, pieces, order in plans:
+        for k in _ROWS:
+            if rows[0][k] is None:
+                full = None
+            elif not pieces:
+                full = rows[0][k][:0].to(dev)
+            else:
+                full = [rows[s][k][dev_idx[d][i]].to(dev)
+                        for s, (d, i), _ in pieces]
+                full = (full[0] if order is None else
+                        torch.cat(full)[dev_idx[order[0]][order[1]]])
+            split = (full.split([sizes[j] for j in blocks])
+                     if full is not None else [None] * len(blocks))
+            for j, t in zip(blocks, split):
+                out[j][k] = t
+    return out
+
+
+def _stash(host: dict, device: torch.device, array: np.ndarray):
+    """Queues a host index array for ``device``; returns its key."""
+    arrs = host.setdefault(device, [])
+    arrs.append(array)
+    return device, len(arrs) - 1
+
+
+def _stage_rows(st: StagePlan, si: int, shard: Shard, r: dict,
+                geom: NetGeometry, cfg: DetectorConfig,
+                patch_hw: Tuple[int, int], samplers, compute_dtype,
+                cut_offs, min_scale_radio: float,
+                max_scale_radio: float) -> None:
+    """The row-parallel work of stage ``si`` on one shard's rows ``r``
+    (updated in place): extraction, network, regression, box moves and
+    gates."""
+    boxes, angles, mask = r["boxes"], r["angles"], r["mask"]
+    if st.extract:
+        interp = cfg.interpolation_formats[st.serial]
+        if si == 0 and shard.pyramid is not None:
+            # Iter-0 grid: contiguous crops from the scale pyramid.
+            crop = samplers[0] if samplers is not None else crop_patches
+            patches = crop(shard.pyramid, shard.crops, patch_hw)
+        elif samplers is not None and interp in ("nearest", "bilinear"):
+            patches = samplers[1](shard.pyramid, shard.pyr_scales,
+                                  r["levels"], boxes, angles, patch_hw,
+                                  method=interp)
+        else:
+            patches = extract_patches_rotate(shard.image, boxes, angles,
+                                             patch_hw, method=interp,
+                                             image_idx=r["img_idx"])
+        patches = patches.reshape(patches.shape[0], -1)
+        if cfg.detection_contrast_normalize:
+            # load_network_subimages(contrast_normalize=True): mean
+            # 137.5 / std 0.4*255 in [0, 255] units; pixels are [0, 1].
+            patches = contrast_normalize_avg_std(
+                patches * 255.0, 137.5, 0.40 * 255.0) / 255.0
+        r["patches"] = patches
+    if st.net_idx >= 0:
+        r["sl"] = shard.nets[st.net_idx](r["patches"],
+                                         compute_dtype=compute_dtype)
+    reg = shard.clfs[st.clf_idx].regression(r["sl"][:, :st.input_dim])
+
+    if st.kind == "Disc":
+        r["conf"] = torch.where(mask, reg, r["conf"])
+        mask = mask & (reg < cut_offs[st.serial])
+    elif st.kind == "PosX":
+        width = boxes[:, 2] - boxes[:, 0]
+        shift = (cfg.resolved_pos_gain() * reg * width
+                 / geom.regression_width)
+        boxes = boxes.clone()
+        boxes[:, 0] -= shift
+        boxes[:, 2] -= shift
+        drift = (boxes[:, 0] + boxes[:, 2]) / 2.0 - r["orig_cx"]
+        mask = mask & (torch.abs(drift) <=
+                       r["max_dx"] * cfg.tolerance_posxy_deviation)
+    elif st.kind == "PosY":
+        height = boxes[:, 3] - boxes[:, 1]
+        shift = (cfg.resolved_pos_gain() * reg * height
+                 / geom.regression_height)
+        boxes = boxes.clone()
+        boxes[:, 1] -= shift
+        boxes[:, 3] -= shift
+        drift = (boxes[:, 1] + boxes[:, 3]) / 2.0 - r["orig_cy"]
+        mask = mask & (torch.abs(drift) <=
+                       r["max_dy"] * cfg.tolerance_posxy_deviation)
+    elif st.kind == "PAng":
+        angles = angles + cfg.resolved_pang_gain() * reg
+        mask = mask & (torch.abs(angles) <=
+                       geom.Dang * cfg.tolerance_angle_deviation)
+    elif st.kind == "Scale":
+        w = boxes[:, 2] - boxes[:, 0]
+        h = boxes[:, 3] - boxes[:, 1]
+        cx = (boxes[:, 2] + boxes[:, 0]) / 2.0
+        cy = (boxes[:, 3] + boxes[:, 1]) / 2.0
+        safe = torch.clamp(reg, min=1e-3)
+        factor = (DESIRED_SAMPLING / safe) ** cfg.resolved_scale_gain()
+        nw = w * factor
+        nh = h * factor
+        boxes = torch.stack([cx - nw / 2, cy - nh / 2,
+                             cx + nw / 2, cy + nh / 2], dim=1)
+        side = torch.sqrt(nw ** 2 + nh ** 2)
+        ratio = side / r["base_side"]
+        mask = mask & (ratio <= max_scale_radio *
+                       cfg.tolerance_scale_deviation)
+        mask = mask & (ratio >= min_scale_radio /
+                       cfg.tolerance_scale_deviation)
+    else:
+        raise ValueError(f"unknown stage kind {st.kind}")
+    r["boxes"], r["angles"], r["mask"] = boxes, angles, mask
+
+
 def run_cascade(plan: Tuple[StagePlan, ...],
                 nets: Sequence,                 # HierarchicalNetwork each
                 geom: NetGeometry,
@@ -172,146 +358,95 @@ def run_cascade(plan: Tuple[StagePlan, ...],
     ``mid_compact`` rows), preserving single-image semantics; rows stay
     grouped contiguously by image afterwards.
     """
+    return run_cascade_shards(
+        plan, geom, cfg, patch_hw,
+        [Shard(state, crops, nets, clfs, image, pyramid, pyr_scales)],
+        collect_trace=collect_trace, n_images=n_images,
+        n_per_image=n_per_image)
+
+
+def run_cascade_shards(plan: Tuple[StagePlan, ...], geom: NetGeometry,
+                       cfg: DetectorConfig, patch_hw: Tuple[int, int],
+                       shards: Sequence[Shard], collect_trace: bool = False,
+                       n_images: int = 1, n_per_image: int = 0):
+    """:func:`run_cascade` over row blocks on one or more devices.
+
+    Each stage's row-parallel work runs per shard, on the shard's device
+    and with its copies of the weights and the pyramid. The two compaction
+    rungs see ALL rows: the rank (and image index) of every row goes to
+    the first shard's device, one stable sort selects the rows as the
+    unsharded cascade would, and the selected rows (state, levels,
+    patches and features) are split over the shards again. The result is
+    gathered on the first shard's device. One shard is the unsharded
+    cascade, operation for operation."""
     trace = []
     cut_offs = cfg.resolved_cut_offs()
     min_scale_radio = geom.mins / DESIRED_SAMPLING
     max_scale_radio = geom.maxs / DESIRED_SAMPLING
     compute_dtype = torch.bfloat16 if cfg.matmul_dtype == "bf16" else None
-
-    boxes, angles, mask = state.boxes, state.angles, state.mask
-    conf = state.conf
-    orig_cx, orig_cy = state.orig_cx, state.orig_cy
-    max_dx, max_dy, base_side = state.max_dx, state.max_dy, state.base_side
-    img_idx = state.img_idx
-    patches = None
-    sl = None
-    fired_rung1 = fired_rung2 = False
-    fused = n_images > 1 and img_idx is not None
-    n_per_cur = n_per_image          # rows per image (fused mode only)
-
+    devices = [s.image.device for s in shards]
     # Refinement windows keep reading their ORIGINAL grid level; in fused
     # mode the caller folded the image index into it (stacked pyramid), so
     # the level-space path needs no image index. A one-image batch (the
     # tail chunk of a chunked batch) takes the same route: its folded
     # levels are the plain ones. (The JAX package sends that case to the
     # canvas; both CUDA kernels take it unchanged.)
-    levels = crops[:, 0] if crops is not None else None
-    samplers = (level_samplers(cfg, image.device)
-                if pyramid is not None else None)
+    rows = [dict(s.state._asdict(), patches=None, sl=None,
+                 levels=s.crops[:, 0] if s.crops is not None else None)
+            for s in shards]
+    samplers = (level_samplers(cfg, devices[0])
+                if shards[0].pyramid is not None else None)
+    fired_rung1 = fired_rung2 = False
+    fused = n_images > 1 and rows[0]["img_idx"] is not None
+    n_per_cur = n_per_image          # rows per image (fused mode only)
 
     for si, st in enumerate(plan):
-        if st.extract:
-            interp = cfg.interpolation_formats[st.serial]
-            if si == 0 and pyramid is not None:
-                # Iter-0 grid: contiguous crops from the scale pyramid.
-                crop = samplers[0] if samplers is not None else crop_patches
-                patches = crop(pyramid, crops, patch_hw)
-            elif samplers is not None and interp in ("nearest", "bilinear"):
-                patches = samplers[1](pyramid, pyr_scales, levels, boxes,
-                                      angles, patch_hw, method=interp)
-            else:
-                patches = extract_patches_rotate(image, boxes, angles,
-                                                 patch_hw, method=interp,
-                                                 image_idx=img_idx)
-            patches = patches.reshape(patches.shape[0], -1)
-            if cfg.detection_contrast_normalize:
-                # load_network_subimages(contrast_normalize=True): mean
-                # 137.5 / std 0.4*255 in [0, 255] units; pixels are [0, 1].
-                patches = contrast_normalize_avg_std(
-                    patches * 255.0, 137.5, 0.40 * 255.0) / 255.0
-        if st.net_idx >= 0:
-            sl = nets[st.net_idx](patches, compute_dtype=compute_dtype)
-        reg = clfs[st.clf_idx].regression(sl[:, :st.input_dim])
-
+        for shard, r in zip(shards, rows):
+            with _on(shard.image.device):
+                _stage_rows(st, si, shard, r, geom, cfg, patch_hw, samplers,
+                            compute_dtype, cut_offs, min_scale_radio,
+                            max_scale_radio)
         if st.kind == "Disc":
-            conf = torch.where(mask, reg, conf)
-            mask = mask & (reg < cut_offs[st.serial])
             # Mid-cascade compaction: after the first Disc gate and again
             # after Disc5, keep the best rows (alive first, then lowest
-            # confidence; stable sort, as jnp.argsort).
+            # confidence; stable sort, as jnp.argsort), over all shards.
             target = 0
             if st.serial < 5 and not fired_rung1 and cfg.mid_compact:
                 target, fired_rung1 = cfg.mid_compact, True
             elif st.serial >= 5 and not fired_rung2 and cfg.mid_compact2:
                 target, fired_rung2 = cfg.mid_compact2, True
-            cur_rows = n_per_cur if fused else mask.shape[0]
+            cur_rows = (n_per_cur if fused
+                        else sum(r["mask"].shape[0] for r in rows))
             if target and not collect_trace and target < cur_rows:
-                rank = torch.where(mask, torch.clamp(conf, 0.0, 1.999),
-                                   torch.full_like(conf, 2.0))
+                ranks = []
+                for r in rows:
+                    rank = torch.where(r["mask"],
+                                       torch.clamp(r["conf"], 0.0, 1.999),
+                                       torch.full_like(r["conf"], 2.0))
+                    if fused:
+                        rank = rank + 4.0 * r["img_idx"].to(torch.float32)
+                    ranks.append(rank)
+                rank = _gather(ranks)
                 if fused:
                     # Per-image rung: rows are grouped contiguously by
                     # image (n_per_cur each; padding carries the img_idx
                     # sentinel n_images and sorts last), so one stable
                     # composite-key sort yields each image's rows in a
                     # contiguous sorted block of exactly n_per_cur entries.
-                    order = torch.argsort(
-                        rank + 4.0 * img_idx.to(torch.float32), stable=True)
+                    order = torch.argsort(rank, stable=True)
                     idx = order[:n_images * n_per_cur].reshape(
                         n_images, n_per_cur)[:, :target].reshape(-1)
                     n_per_cur = target
                 else:
                     idx = torch.argsort(rank, stable=True)[:target]
-                boxes, angles, mask, conf = (boxes[idx], angles[idx],
-                                             mask[idx], conf[idx])
-                orig_cx, orig_cy = orig_cx[idx], orig_cy[idx]
-                max_dx, max_dy = max_dx[idx], max_dy[idx]
-                base_side = base_side[idx]
-                patches = patches[idx]
-                if img_idx is not None:
-                    img_idx = img_idx[idx]
-                if levels is not None:
-                    levels = levels[idx]
-                if sl is not None:
-                    sl = sl[idx]
-        elif st.kind == "PosX":
-            width = boxes[:, 2] - boxes[:, 0]
-            shift = (cfg.resolved_pos_gain() * reg * width
-                     / geom.regression_width)
-            boxes = boxes.clone()
-            boxes[:, 0] -= shift
-            boxes[:, 2] -= shift
-            drift = (boxes[:, 0] + boxes[:, 2]) / 2.0 - orig_cx
-            mask = mask & (torch.abs(drift) <=
-                           max_dx * cfg.tolerance_posxy_deviation)
-        elif st.kind == "PosY":
-            height = boxes[:, 3] - boxes[:, 1]
-            shift = (cfg.resolved_pos_gain() * reg * height
-                     / geom.regression_height)
-            boxes = boxes.clone()
-            boxes[:, 1] -= shift
-            boxes[:, 3] -= shift
-            drift = (boxes[:, 1] + boxes[:, 3]) / 2.0 - orig_cy
-            mask = mask & (torch.abs(drift) <=
-                           max_dy * cfg.tolerance_posxy_deviation)
-        elif st.kind == "PAng":
-            angles = angles + cfg.resolved_pang_gain() * reg
-            mask = mask & (torch.abs(angles) <=
-                           geom.Dang * cfg.tolerance_angle_deviation)
-        elif st.kind == "Scale":
-            w = boxes[:, 2] - boxes[:, 0]
-            h = boxes[:, 3] - boxes[:, 1]
-            cx = (boxes[:, 2] + boxes[:, 0]) / 2.0
-            cy = (boxes[:, 3] + boxes[:, 1]) / 2.0
-            safe = torch.clamp(reg, min=1e-3)
-            factor = (DESIRED_SAMPLING / safe) ** cfg.resolved_scale_gain()
-            nw = w * factor
-            nh = h * factor
-            boxes = torch.stack([cx - nw / 2, cy - nh / 2,
-                                 cx + nw / 2, cy + nh / 2], dim=1)
-            side = torch.sqrt(nw ** 2 + nh ** 2)
-            ratio = side / base_side
-            mask = mask & (ratio <= max_scale_radio *
-                           cfg.tolerance_scale_deviation)
-            mask = mask & (ratio >= min_scale_radio /
-                           cfg.tolerance_scale_deviation)
-        else:
-            raise ValueError(f"unknown stage kind {st.kind}")
+                rows = _take(rows, idx, devices)
 
         if collect_trace:
-            trace.append((boxes, angles, mask, conf))
+            trace.append(tuple(_gather([r[k] for r in rows])
+                               for k in ("boxes", "angles", "mask", "conf")))
 
-    out = CascadeState(boxes, angles, mask, conf, orig_cx, orig_cy,
-                       max_dx, max_dy, base_side, img_idx)
+    out = CascadeState(*(_gather([r[k] for r in rows])
+                         for k in CascadeState._fields))
     if collect_trace:
         return out, tuple(trace)
     return out

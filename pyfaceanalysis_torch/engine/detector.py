@@ -12,7 +12,10 @@ device. One (k_out, 11) block crosses back to the host per image
 (``detect``), or one (B, k, 11) block per batch (``detect_batch`` in its
 fused mode: ONE cascade over the windows of every image of the batch), plus
 one (4, N) block of attributes. ``detect_stream`` keeps several batches in
-flight. The data mesh (``config.data_mesh``) is not ported.
+flight. With ``config.data_mesh`` above 1 the window batch of ``detect``
+and of the fused batch is sharded over a data mesh of that many devices
+(``parallel.mesh``); the ranking, the eye pass and the heads run on the
+first device over all survivors.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from pyfaceanalysis_torch.models.network import HierarchicalNetwork
 from pyfaceanalysis_torch.ops.gaussian import GaussianRegressor
 from pyfaceanalysis_torch.ops.pyramid import build_pyramid, build_pyramid_batch
 from pyfaceanalysis_torch.ops.ridge import RidgeRegressor
+from pyfaceanalysis_torch.parallel import mesh as mesh_mod
 
 Classifier = Union[GaussianRegressor, RidgeRegressor]
 
@@ -119,6 +123,17 @@ class DetectionModel:
 
     def clf_input_dim(self, raw_type: str) -> int:
         return self.classifier(raw_type).input_dim
+
+    def network_for(self, raw_type: str) -> HierarchicalNetwork:
+        """Network whose features the stage consumes; ``None*`` stages walk
+        back to the most recent stage with a real network (the reference's
+        feature-reuse rule)."""
+        i = self.stage(raw_type)
+        while i >= 0 and self.spec.stages[i].reuses_features:
+            i -= 1
+        if i < 0:
+            raise KeyError(f"stage {raw_type} reuses features of nothing")
+        return self.nets[self.spec.stages[i].network_name]
 
     @staticmethod
     def load(artifact_dir: str, pipeline_file: Optional[str] = None,
@@ -270,8 +285,14 @@ def _detect_core(model: DetectionModel, cfg: DetectorConfig, k_out: int,
                  image: torch.Tensor, state: cascade_mod.CascadeState,
                  pyramid: Optional[torch.Tensor] = None,
                  crops: Optional[torch.Tensor] = None,
-                 pyr_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 pyr_scales: Optional[torch.Tensor] = None,
+                 shards: Optional[List[cascade_mod.Shard]] = None
+                 ) -> torch.Tensor:
     """Cascade + survivor ranking + eye localization on the device.
+
+    With ``shards`` (``FaceDetector._apply_mesh``) the cascade runs sharded
+    and its survivors come back to ``image``'s device, where the rest
+    runs.
 
     Returns a (k_out, 11) block [x0, y0, x1, y1, angle, elx, ely, erx, ery,
     conf, valid]; with config.eye_iters > 1 a (k_out, 15) block whose cols
@@ -280,11 +301,13 @@ def _detect_core(model: DetectionModel, cfg: DetectorConfig, k_out: int,
     """
     geom = model.spec.face_geom
     eye_geom = model.spec.eye_geom
-    out = cascade_mod.run_cascade(
-        model.plan, model.det_nets, geom, cfg,
-        (geom.subimage_height, geom.subimage_width),
-        image, model.det_clfs, state, pyramid=pyramid, crops=crops,
-        pyr_scales=pyr_scales)
+    patch_hw = (geom.subimage_height, geom.subimage_width)
+    if shards is None:
+        shards = [cascade_mod.Shard(state, crops, model.det_nets,
+                                    model.det_clfs, image, pyramid,
+                                    pyr_scales)]
+    out = cascade_mod.run_cascade_shards(model.plan, geom, cfg, patch_hw,
+                                         shards)
 
     # Alive rows first, best (lowest) Disc confidence first within them.
     # The eye sub-cascade runs on at most eye_max_faces rows; rows beyond
@@ -344,7 +367,8 @@ def _detect_core_batch(model: DetectionModel, cfg: DetectorConfig,
                        state: cascade_mod.CascadeState,
                        pyramid: Optional[torch.Tensor] = None,
                        crops: Optional[torch.Tensor] = None,
-                       pyr_scales: Optional[torch.Tensor] = None
+                       pyr_scales: Optional[torch.Tensor] = None,
+                       shards: Optional[List[cascade_mod.Shard]] = None
                        ) -> torch.Tensor:
     """FUSED multi-image detection: ONE cascade over the windows of all
     ``n_images`` same-sized images plus one eye sub-cascade.
@@ -357,7 +381,8 @@ def _detect_core_batch(model: DetectionModel, cfg: DetectorConfig,
     Args mirror ``_detect_core`` with: ``images`` a (B, H, W) stack;
     ``state`` from ``cascade.make_batched_grid_state`` (tiled grid +
     img_idx); ``pyramid`` the stacked per-image pyramids ((B * L, lh, lw));
-    ``pyr_scales`` the single-image ladder tiled B times; ``n_levels`` = L.
+    ``pyr_scales`` the single-image ladder tiled B times; ``n_levels`` = L;
+    ``shards`` as in ``_detect_core``.
 
     Returns (B, k, 11) detection blocks (k = min(k_out, rows per image
     after compaction)), rows ranked best-first per image; (B, k, 15) with
@@ -365,11 +390,14 @@ def _detect_core_batch(model: DetectionModel, cfg: DetectorConfig,
     """
     geom = model.spec.face_geom
     eye_geom = model.spec.eye_geom
-    out = cascade_mod.run_cascade(
-        model.plan, model.det_nets, geom, cfg,
-        (geom.subimage_height, geom.subimage_width),
-        images, model.det_clfs, state, pyramid=pyramid, crops=crops,
-        pyr_scales=pyr_scales, n_images=n_images, n_per_image=n_per_image)
+    patch_hw = (geom.subimage_height, geom.subimage_width)
+    if shards is None:
+        shards = [cascade_mod.Shard(state, crops, model.det_nets,
+                                    model.det_clfs, images, pyramid,
+                                    pyr_scales)]
+    out = cascade_mod.run_cascade_shards(
+        model.plan, geom, cfg, patch_hw, shards, n_images=n_images,
+        n_per_image=n_per_image)
 
     # Per-image ranked top-k via one stable composite-key sort: rows are
     # grouped contiguously by image (exactly n_last per image; padding
@@ -487,17 +515,28 @@ class FaceDetector:
             config = dataclasses.replace(
                 config, tolerance_xy_eye=float(
                     calib.get("tolerance_xy_eye", 9.0)))
-        if config.data_mesh > 1:
-            raise NotImplementedError(
-                "config.data_mesh > 1 (--data_mesh): the data mesh "
-                "(parallel/mesh, the last item of ROADMAP.md's porting "
-                "queue) is not ported yet")
         self.model = model.to(self.device)
         self.config = config
         self.face_has_been_found = False
         self.tracked_face: Optional[Tuple] = None
         self.windows_scanned = 0
         self.last_trace = None
+        # Data-parallel inference: a 1-D mesh over which the window batch
+        # of detect and of the fused batch is sharded (--data_mesh=N). One
+        # device (data_mesh 1) takes no mesh, as in the JAX package.
+        self._mesh = None
+        self._mesh_weights = None
+        if config.data_mesh > 1:
+            self._mesh = mesh_mod.make_mesh(config.data_mesh,
+                                            device=self.device)
+            # The survivors come back to the mesh's first device, where the
+            # canvas, the eye pass and the heads are.
+            if (self.device.type == "cuda"
+                    and (self.device.index or 0) != self._mesh.leader.index):
+                raise ValueError(
+                    f"a data mesh of {config.data_mesh} cards starts at "
+                    f"{self._mesh.leader}; the detector runs on "
+                    f"{self.device}")
         # Fixed canvas: every input of the same prescaled size shares it.
         side = config.prescale_size if config.image_prescaling else 2048
         _check_wire_range(config, side)
@@ -539,6 +578,12 @@ class FaceDetector:
             self._canvas_hw = (side, side)
         return self._canvas_hw
 
+    def prescale_factor(self, w: int, h: int) -> float:
+        """Reference prescaling: max side <= prescale_size."""
+        if not self.config.image_prescaling:
+            return 1.0
+        return min(1.0, self.config.prescale_size / float(max(w, h)))
+
     def _to_canvas(self, image: np.ndarray) -> torch.Tensor:
         """Pads into the fixed canvas on the device."""
         H, W = self._fit_canvas(*image.shape)
@@ -559,6 +604,20 @@ class FaceDetector:
     def _scales(self, pyr, tile: int = 1) -> torch.Tensor:
         return torch.tensor(pyr.scales * tile, dtype=torch.float32,
                             device=self.device)
+
+    def _apply_mesh(self, state, crops, image, pyramid, scales
+                    ) -> List[cascade_mod.Shard]:
+        """The window state and the crop table sharded over the data mesh;
+        canvas, pyramid and scales replicated. The networks and
+        classifiers are copied once to each distinct device of a mesh
+        (again only when the mesh is replaced)."""
+        mesh = self._mesh
+        if self._mesh_weights is None or self._mesh_weights[0] is not mesh:
+            self._mesh_weights = (mesh, mesh_mod.replicate_weights(
+                mesh, self.model.det_nets, self.model.det_clfs))
+        return mesh_mod.cascade_shards(mesh, state, crops,
+                                       self._mesh_weights[1], image, pyramid,
+                                       scales)
 
     # -- one image -------------------------------------------------------------
 
@@ -600,8 +659,10 @@ class FaceDetector:
                 crops=crops, pyr_scales=scales_arr, collect_trace=True)
             self.last_trace = [tuple(t.cpu().numpy() for t in snap)
                                for snap in trace]
+        shards = (None if self._mesh is None else self._apply_mesh(
+            state, crops, device_image, pyramid, scales_arr))
         block = _detect_core(model, cfg, cfg.max_detections, device_image,
-                             state, pyramid, crops, scales_arr)
+                             state, pyramid, crops, scales_arr, shards)
         rows = _block_rows(_pull(block))            # the one result pull
         if len(rows) == 0:
             self._update_tracking(rows)
@@ -715,9 +776,11 @@ class FaceDetector:
                                             pyr_b.level_hw)
             crops_b = pyr_b.crops
             scales_b = self._scales(pyr_b, tile=B)
+        shards = (None if self._mesh is None else self._apply_mesh(
+            state_b, crops_b, stack, pyramid_b, scales_b))
         fut = _detect_core_batch(
             model, cfg, cfg.max_detections, B, n_real, n_levels, stack,
-            state_b, pyramid_b, crops_b, scales_b)
+            state_b, pyramid_b, crops_b, scales_b, shards)
         return stack, fut
 
     def _purge(self, block: np.ndarray) -> np.ndarray:

@@ -21,18 +21,34 @@ column negated); the networks are sign-equivariant, so trained features
 agree with another solver's up to a per-column sign. No sign convention is
 imposed, as the JAX package imposes none.
 
-The solvers take float32 moments, as the JAX package's do, but solve in
-float64 on the same device and return float32. The rank-control penalty
+The moments come in the data's dtype; ``training.trainer.train_network``
+hands them float64 data (the JAX trainer accumulates float32): the serial
+scatter is a difference of large sums, and with float32 sums its trailing
+slow directions follow the rounding of the summation order (see
+``train_network``). The solvers solve in float64 on the same device and
+return the moments' dtype. The rank-control penalty
 puts eigenvalues of 1e6 beside slownesses of 1e-3 in one matrix, and a
 float32 eigensolver is accurate only relative to the matrix norm:
 cuSOLVER's float32 ``eigh`` on an H100 returned slownesses off by factors
 of 6 to 59 where LAPACK's float32 was within 1e-4 and float64 within 1e-13
 on either (tools/torch_eigh_check.py).
+
+Sharded data (a data mesh, ``parallel.mesh``): ``mean_cov``,
+``gsfa_moments`` and ``temporal_scatter`` also take a list of row blocks,
+one per device, in row order; one tensor is the one-block case of the same
+code. Each block gives partial sums on its device (``serial_partials``,
+``clustered_partials``) and the sums are added on the first block's
+device (``serial_combine``, ``clustered_combine``), as XLA's psum adds
+them; the moments come back there. The serial graph's label sort stays
+global (a row's group is its rank in the global stable order // m, and the
+group sums are ``index_add_`` on the device), and the temporal graph's
+difference across a block boundary takes the next block's first row (a
+one-row halo).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,47 +65,113 @@ def _eigh(x: torch.Tensor):
     return torch.linalg.eigh((x + x.transpose(-1, -2)) / 2)
 
 
-def mean_cov(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, F, D) -> (mean (F, D), cov (F, D, D))."""
-    n = x.shape[0]
-    mean = x.mean(dim=0)
-    xc = x - mean
-    return mean, _gram(xc, xc) / (n - 1)
+Sharded = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def temporal_scatter(xc: torch.Tensor) -> torch.Tensor:
-    dx = xc[1:] - xc[:-1]
-    return _gram(dx, dx) / max(dx.shape[0], 1)
+def _blocks(x: Sharded) -> List[torch.Tensor]:
+    return [x] if isinstance(x, torch.Tensor) else list(x)
+
+
+def _psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Sum of per-shard partials on the first shard's device."""
+    lead = parts[0].device
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(lead)
+    return total
+
+
+def _centred(blocks: Sequence[torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+    """(mean, cov) on the first block's device, and the centred blocks,
+    each on its own device."""
+    n = sum(b.shape[0] for b in blocks)
+    mean = _psum([b.sum(dim=0) for b in blocks]) / n
+    xcs = [b - mean.to(b.device) for b in blocks]
+    return mean, _psum([_gram(c, c) for c in xcs]) / (n - 1), xcs
+
+
+def mean_cov(x: Sharded) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, F, D) -> (mean (F, D), cov (F, D, D)); ``x`` may be a list of
+    row blocks (see the module's text)."""
+    mean, cov, _ = _centred(_blocks(x))
+    return mean, cov
+
+
+def temporal_scatter(xc: Sharded) -> torch.Tensor:
+    """Mean of dx dx^T over consecutive centred rows; over row blocks, each
+    block's last row pairs with the next block's first (the halo)."""
+    blocks = _blocks(xc)
+    parts = []
+    for j, c in enumerate(blocks):
+        if j + 1 < len(blocks):
+            c = torch.cat([c, blocks[j + 1][:1].to(c.device)], dim=0)
+        dx = c[1:] - c[:-1]
+        parts.append(_gram(dx, dx))
+    n = sum(b.shape[0] for b in blocks)
+    return _psum(parts) / max(n - 1, 1)
+
+
+def serial_partials(xc: torch.Tensor, group: np.ndarray, num_groups: int
+                    ) -> Tuple[torch.Tensor, ...]:
+    """One block's partial sums of the serial graph: ``xc`` (n, F, D)
+    centred rows, ``group`` (n,) host ints, each row's group in the global
+    label order (``num_groups`` or more: past the last whole group, in
+    none). Returns s (G, F, D), M_tot, M_first and M_last (F, D, D) on
+    ``xc``'s device; the host indices go up in one copy."""
+    group = np.asarray(group)
+    G = num_groups
+    kept = np.nonzero(group < G)[0]
+    host = [group[kept], np.nonzero(group == 0)[0],
+            np.nonzero(group == G - 1)[0]]
+    if len(kept) < len(group):
+        host.append(kept)
+    idx = torch.as_tensor(np.concatenate(host), device=xc.device).split(
+        [len(h) for h in host])
+    rows = xc[idx[3]] if len(idx) > 3 else xc
+    s = xc.new_zeros((G,) + tuple(xc.shape[1:])).index_add_(0, idx[0], rows)
+    first, last = xc[idx[1]], xc[idx[2]]
+    return s, _gram(rows, rows), _gram(first, first), _gram(last, last)
+
+
+def serial_combine(partials: Sequence[Tuple[torch.Tensor, ...]],
+                   m: int) -> torch.Tensor:
+    """The serial edge scatter (groups of ``m`` rows) from every block's
+    :func:`serial_partials`, on the first block's device."""
+    s, M_tot, M_first, M_last = (_psum(p) for p in zip(*partials))
+    cross = _gram(s[:-1], s[1:])
+    A = (m * (2.0 * M_tot - M_first - M_last)
+         - cross - cross.transpose(-1, -2))
+    return A / (m * m * (s.shape[0] - 1))
 
 
 def serial_scatter(xc_sorted: torch.Tensor, num_groups: int) -> torch.Tensor:
     """xc_sorted: (N, F, D) centred data already sorted by label; the rows
     past the last whole group (N mod num_groups) are dropped."""
-    N, F, D = xc_sorted.shape
-    m = N // num_groups
-    xg = xc_sorted[: m * num_groups].reshape(num_groups, m, F, D)
-    s = xg.sum(dim=1)                                      # (G, F, D)
-    M_tot = _gram(xg.reshape(num_groups * m, F, D),
-                  xg.reshape(num_groups * m, F, D))
-    M_first = _gram(xg[0], xg[0])
-    M_last = _gram(xg[-1], xg[-1])
-    cross = _gram(s[:-1], s[1:])
-    A = (m * (2.0 * M_tot - M_first - M_last)
-         - cross - cross.transpose(-1, -2))
-    edges = m * m * (num_groups - 1)
-    return A / edges
+    m = xc_sorted.shape[0] // num_groups
+    group = np.arange(xc_sorted.shape[0]) // m
+    return serial_combine([serial_partials(xc_sorted, group, num_groups)], m)
 
 
-def clustered_scatter(xc: torch.Tensor, onehot: torch.Tensor,
-                      num_classes: int) -> torch.Tensor:
-    """xc: (N, F, D) centred; onehot: (N, C) class indicators."""
-    counts = onehot.sum(dim=0)                             # (C,)
-    w = onehot / torch.clamp(counts, min=1.0)[None, :]     # weight 1/n_c
-    s = torch.einsum("nc,nfd->cfd", w, xc)                 # s_c / n_c
-    # M_c / n_c, one class at a time: a (N, C, F, D) product would hold C
-    # copies of the data.
+def clustered_partials(xc: torch.Tensor, w: torch.Tensor, num_classes: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block's class sums: ``w`` (n, C) is each row's class indicator
+    over its class's global count. Returns s (C, F, D) = s_c / n_c and
+    M (C, F, D, D) = M_c / n_c on ``xc``'s device."""
+    s = torch.einsum("nc,nfd->cfd", w, xc)
+    # One class at a time: a (N, C, F, D) product would hold C copies of
+    # the data.
     M = torch.stack([_gram(xc * w[:, c, None, None], xc)
                      for c in range(num_classes)])
+    return s, M
+
+
+def clustered_combine(partials: Sequence[Tuple[torch.Tensor, ...]],
+                      counts: torch.Tensor) -> torch.Tensor:
+    """The clustered edge scatter from every block's
+    :func:`clustered_partials` and the global class counts (C,), on the
+    first block's device."""
+    s, M = (_psum(p) for p in zip(*partials))
     A = (2.0 * torch.einsum("c,cfde->fde", counts, M)
          - 2.0 * torch.einsum("c,cfde->fde", counts,
                               s[:, :, :, None] * s[:, :, None, :]))
@@ -97,39 +179,64 @@ def clustered_scatter(xc: torch.Tensor, onehot: torch.Tensor,
     return A / total
 
 
-def gsfa_moments(x: torch.Tensor, graph: str, labels=None,
+def clustered_scatter(xc: torch.Tensor, onehot: torch.Tensor,
+                      num_classes: int) -> torch.Tensor:
+    """xc: (N, F, D) centred; onehot: (N, C) class indicators."""
+    counts = onehot.sum(dim=0)                             # (C,)
+    w = onehot / torch.clamp(counts, min=1.0)[None, :]     # weight 1/n_c
+    return clustered_combine([clustered_partials(xc, w, num_classes)],
+                             counts)
+
+
+def gsfa_moments(x: Sharded, graph: str, labels=None,
                  num_groups: int = 50, label_weights=None):
     """Moments (mean (F, D), B (F, D, D), A (F, D, D)) on ``x``'s device;
-    the host labels drive the graph structure.
+    the host labels drive the graph structure. ``x`` may be a list of row
+    blocks (see the module's text); the moments are then on the first
+    block's device.
 
     ``serial`` takes (N,) labels or an (N, K) label matrix: the edge
     scatter is then the weighted average of the K per-label serial graphs
     (one feature space serving several regression targets). Labels are
     sorted with numpy's stable argsort, so ties fall as in the JAX package.
     """
-    mean, B = mean_cov(x)
-    xc = x - mean
+    mean, B, xcs = _centred(_blocks(x))
+    offsets = np.cumsum([0] + [c.shape[0] for c in xcs])
+    n = int(offsets[-1])
     if graph == "temporal":
-        A = temporal_scatter(xc)
+        A = temporal_scatter(xcs)
     elif graph == "serial":
         lab = np.asarray(labels)
         if lab.ndim == 1:
             lab = lab[:, None]
         w = (np.ones(lab.shape[1]) if label_weights is None
              else np.asarray(label_weights, np.float64))
+        m = n // num_groups
         A = None
         for k in range(lab.shape[1]):
-            order = torch.as_tensor(np.argsort(lab[:, k], kind="stable"),
-                                    device=xc.device)
-            Ak = float(w[k]) * serial_scatter(xc[order], num_groups)
+            # Each row's group in the global stable label order.
+            rank = np.empty(n, np.int64)
+            rank[np.argsort(lab[:, k], kind="stable")] = np.arange(n)
+            group = rank // m
+            Ak = float(w[k]) * serial_combine(
+                [serial_partials(c, group[a:b], num_groups)
+                 for c, a, b in zip(xcs, offsets[:-1], offsets[1:])], m)
             A = Ak if A is None else A + Ak
         A = A / float(w.sum())
     elif graph == "clustered":
         classes, dense = np.unique(np.asarray(labels), return_inverse=True)
-        onehot = torch.as_tensor(
-            np.eye(len(classes), dtype=np.float32)[dense.reshape(-1)],
-            device=xc.device)
-        A = clustered_scatter(xc, onehot, len(classes))
+        dense = dense.reshape(-1)
+        C = len(classes)
+        cls = [torch.as_tensor(dense[a:b], device=c.device)
+               for c, a, b in zip(xcs, offsets[:-1], offsets[1:])]
+        counts = _psum([torch.bincount(k, minlength=C)
+                        for k in cls]).to(mean.dtype)
+        partials = []
+        for c, k in zip(xcs, cls):
+            w = (torch.nn.functional.one_hot(k, C).to(c.dtype)
+                 / torch.clamp(counts, min=1.0).to(c.device))  # 1/n_c
+            partials.append(clustered_partials(c, w, C))
+        A = clustered_combine(partials, counts)
     else:
         raise ValueError(f"unknown graph {graph!r}")
     return mean, B, A

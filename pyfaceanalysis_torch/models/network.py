@@ -82,6 +82,11 @@ class HierarchicalNetwork(nn.Module):
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         return apply_network(self, x, compute_dtype=compute_dtype)
 
+    def execute(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, h*w) -> (B, out_dim): the JAX package's name of ``forward``
+        (the reference's ``flow.execute``)."""
+        return apply_network(self, x)
+
 
 def apply_layer(spec: LayerSpec, node: LinearNode, index: torch.Tensor,
                 x: torch.Tensor,

@@ -25,31 +25,32 @@ import torch
 from torch import nn
 
 
-def _f32(value) -> torch.Tensor:
-    """A float32 tensor from a tensor (kept on its device) or an array.
+def _tensor(value, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A ``dtype`` tensor from a tensor (kept on its device) or an array.
     An array keeps its strides: the shipped archives hold Fortran-ordered
     weights, and the product's kernel, so its last bits, depends on the
     layout. Torch takes no negative stride (a reversed view), so such an
     array is copied first."""
     if isinstance(value, torch.Tensor):
-        return value.detach().to(torch.float32)
+        return value.detach().to(dtype)
     value = np.asarray(value)
     if any(st < 0 for st in value.strides):
         value = value.copy()
-    return torch.tensor(value, dtype=torch.float32)
+    return torch.tensor(value, dtype=dtype)
 
 
 class LinearNode(nn.Module):
     """A trained affine projection per receptive field: y = (x - mean) @ W.
 
-    ``mean``: (F, D), ``W``: (F, D, O), both float32 buffers; either may be
-    given as an array or as a tensor, which stays on its device.
+    ``mean``: (F, D), ``W``: (F, D, O), both buffers of ``dtype`` (float32
+    unless a fit is asked for another); either may be given as an array or
+    as a tensor, which stays on its device.
     """
 
-    def __init__(self, mean, W):
+    def __init__(self, mean, W, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.register_buffer("mean", _f32(mean))
-        self.register_buffer("W", _f32(W))
+        self.register_buffer("mean", _tensor(mean, dtype))
+        self.register_buffer("W", _tensor(W, dtype))
 
     @property
     def out_dim(self) -> int:
@@ -176,9 +177,11 @@ def solve_gsfa(A: np.ndarray, B: np.ndarray, out_dim: int,
 
 def sfa_fit(x, out_dim: int, graph: str = "temporal",
             labels: Optional[np.ndarray] = None, num_groups: int = 50,
-            reg: float = 1e-7) -> LinearNode:
+            reg: float = 1e-7, dtype: torch.dtype = torch.float32
+            ) -> LinearNode:
     """Fits (G)SFA on (N, F, D) or (N, D) data. ``graph``: "temporal",
-    "serial" or "clustered" (the last two need ``labels``)."""
+    "serial" or "clustered" (the last two need ``labels``). The node's
+    buffers are ``dtype``."""
     x3, _ = _ensure_3d(x)
     mean, B = covariance(x3)
     xc = x3 - mean
@@ -190,20 +193,23 @@ def sfa_fit(x, out_dim: int, graph: str = "temporal",
         A = clustered_edge_scatter(xc, np.asarray(labels))
     else:
         raise ValueError(f"unknown graph {graph!r}")
-    return LinearNode(mean, solve_gsfa(A, B, out_dim, reg=reg))
+    return LinearNode(mean, solve_gsfa(A, B, out_dim, reg=reg), dtype)
 
 
-def pca_fit(x, out_dim: int) -> LinearNode:
-    """Fits PCA on (N, F, D) or (N, D) data (principal components first)."""
+def pca_fit(x, out_dim: int, dtype: torch.dtype = torch.float32
+            ) -> LinearNode:
+    """Fits PCA on (N, F, D) or (N, D) data (principal components first);
+    the node's buffers are ``dtype``."""
     x3, _ = _ensure_3d(x)
     mean, cov = covariance(x3)
     _, evecs = np.linalg.eigh(cov)                   # ascending
-    return LinearNode(mean, evecs[..., ::-1][..., :out_dim])
+    return LinearNode(mean, evecs[..., ::-1][..., :out_dim], dtype)
 
 
 def igsfa_fit(x, slow_dim: int, out_dim: int, graph: str = "temporal",
               labels: Optional[np.ndarray] = None, num_groups: int = 50,
-              reg: float = 1e-7) -> LinearNode:
+              reg: float = 1e-7, dtype: torch.dtype = torch.float32
+              ) -> LinearNode:
     """Information-preserving GSFA: ``slow_dim`` slow features and a PCA of
     the slow-reconstruction residual, ``out_dim`` outputs in all, folded
     into one affine node [W_slow | P_resid] on centred x."""
@@ -227,4 +233,4 @@ def igsfa_fit(x, slow_dim: int, out_dim: int, graph: str = "temporal",
         # (x - y coef) P = x (P - Ws coef P)
         W_out[f, :, :slow_dim] = Ws[f]
         W_out[f, :, slow_dim:slow_dim + P.shape[1]] = P - Ws[f] @ (coef @ P)
-    return LinearNode(mean, W_out)
+    return LinearNode(mean, W_out, dtype)

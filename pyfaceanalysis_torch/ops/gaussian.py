@@ -22,15 +22,16 @@ from torch import nn
 
 class GaussianRegressor(nn.Module):
     """``means`` (C, D), ``inv_covs`` (C, D, D), ``log_norm`` (C,) =
-    log(prior_c) - log(sqrt_det_cov_c), ``avg_labels`` (C,); float32
-    buffers."""
+    log(prior_c) - log(sqrt_det_cov_c), ``avg_labels`` (C,); buffers of
+    ``dtype`` (float32 unless asked for another)."""
 
-    def __init__(self, means, inv_covs, log_norm, avg_labels):
+    def __init__(self, means, inv_covs, log_norm, avg_labels,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         for name, value in (("means", means), ("inv_covs", inv_covs),
                             ("log_norm", log_norm), ("avg_labels", avg_labels)):
             self.register_buffer(name, torch.tensor(np.asarray(value),
-                                                    dtype=torch.float32))
+                                                    dtype=dtype))
 
     @property
     def num_classes(self) -> int:
@@ -42,23 +43,25 @@ class GaussianRegressor(nn.Module):
         return self.means.shape[1]
 
     @staticmethod
-    def create(means, inv_covs, sqrt_det_covs, priors, avg_labels
-               ) -> "GaussianRegressor":
+    def create(means, inv_covs, sqrt_det_covs, priors, avg_labels,
+               dtype: torch.dtype = torch.float32) -> "GaussianRegressor":
         """From the attributes of a legacy ``GaussianClassifier``: ``means``
         (C, D), ``inv_covs`` (C, D, D), ``sqrt_det_covs`` (C,) =
         sqrt(det(cov_c)), ``priors`` (C,), ``avg_labels`` (C,). The log
-        normalizer is formed in float64 before the float32 buffers are
+        normalizer is formed in float64 before the ``dtype`` buffers are
         made."""
         sqrt_det_covs = np.asarray(sqrt_det_covs, np.float64)
         priors = np.asarray(priors, np.float64)
         log_norm = np.log(priors) - np.log(sqrt_det_covs)
-        return GaussianRegressor(means, inv_covs, log_norm, avg_labels)
+        return GaussianRegressor(means, inv_covs, log_norm, avg_labels,
+                                 dtype)
 
     @staticmethod
-    def fit(x, labels, avg_labels=None, reg: float = 1e-3
-            ) -> "GaussianRegressor":
+    def fit(x, labels, avg_labels=None, reg: float = 1e-3,
+            dtype: torch.dtype = torch.float32) -> "GaussianRegressor":
         """Trains per-class Gaussians in float64 numpy on the host (the
-        JAX package's fit, copied); the module is made on the CPU.
+        JAX package's fit, copied); the module is made on the CPU, with
+        ``dtype`` buffers.
 
         Args:
             x: (N, D) features.
@@ -88,7 +91,8 @@ class GaussianRegressor(nn.Module):
         if avg_labels is None:
             avg_labels = classes.astype(np.float64)
         return GaussianRegressor(means, inv_covs,
-                                 np.log(priors) - log_sqrt_det, avg_labels)
+                                 np.log(priors) - log_sqrt_det, avg_labels,
+                                 dtype)
 
     def log_posteriors(self, x: torch.Tensor) -> torch.Tensor:
         """(B, D) -> (B, C) unnormalized log posteriors, in the centred form

@@ -21,14 +21,16 @@ from torch import nn
 
 class RidgeRegressor(nn.Module):
     """``w`` (D,), ``b`` (), ``clip_lo``/``clip_hi`` () the training label
-    range, ``resid_std`` () the training residual std; float32 buffers."""
+    range, ``resid_std`` () the training residual std; buffers of ``dtype``
+    (float32 unless asked for another)."""
 
-    def __init__(self, w, b, clip_lo, clip_hi, resid_std):
+    def __init__(self, w, b, clip_lo, clip_hi, resid_std,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         for name, value in (("w", w), ("b", b), ("clip_lo", clip_lo),
                             ("clip_hi", clip_hi), ("resid_std", resid_std)):
             self.register_buffer(name, torch.tensor(np.asarray(value),
-                                                    dtype=torch.float32))
+                                                    dtype=dtype))
 
     @property
     def input_dim(self) -> int:
@@ -40,10 +42,11 @@ class RidgeRegressor(nn.Module):
         return torch.stack([self.clip_lo, self.clip_hi])
 
     @staticmethod
-    def fit(x, y, input_dim: int, reg: float = 1e-3) -> "RidgeRegressor":
+    def fit(x, y, input_dim: int, reg: float = 1e-3,
+            dtype: torch.dtype = torch.float32) -> "RidgeRegressor":
         """Least squares with L2 ``reg`` (relative to the mean feature
         scale) on the first ``input_dim`` features, solved in float64
-        numpy on the host."""
+        numpy on the host; ``dtype`` buffers."""
         x = np.asarray(x, np.float64)[:, :input_dim]
         y = np.asarray(y, np.float64)
         xm = x.mean(axis=0)
@@ -55,7 +58,8 @@ class RidgeRegressor(nn.Module):
         pred = xc @ w + ym
         resid = float(np.sqrt(np.mean((pred - y) ** 2)))
         b = float(ym - xm @ w)
-        return RidgeRegressor(w, b, float(y.min()), float(y.max()), resid)
+        return RidgeRegressor(w, b, float(y.min()), float(y.max()), resid,
+                              dtype)
 
     def regression(self, x: torch.Tensor, estimate_std: bool = False
                    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:

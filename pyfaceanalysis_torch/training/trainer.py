@@ -49,14 +49,9 @@ from pyfaceanalysis_torch.models import builder, moments
 from pyfaceanalysis_torch.models.network import HierarchicalNetwork, apply_layer
 from pyfaceanalysis_torch.models.sfa import LinearNode
 from pyfaceanalysis_torch.ops.gaussian import GaussianRegressor
+from pyfaceanalysis_torch.parallel import mesh as mesh_mod
 from pyfaceanalysis_torch.training import datasets
 from pyfaceanalysis_torch.training.sampler import Sampler
-
-MESH_NOT_PORTED = (
-    "data_mesh > 0 (--data_mesh): the data mesh (parallel/mesh, "
-    "parallel/train_step, the last item of ROADMAP.md's porting queue) is "
-    "not ported yet")
-
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -77,25 +72,56 @@ def train_network(net: HierarchicalNetwork, x: torch.Tensor,
                   graph: str = "temporal",
                   labels: Optional[np.ndarray] = None,
                   num_groups: int = 50, verbose: bool = True,
-                  label_weights=None) -> HierarchicalNetwork:
+                  label_weights=None, mesh=None) -> HierarchicalNetwork:
     """Trains all layers of ``net`` on an (N, D_in) tensor with one shared
     graph, on the tensor's device.
 
     Each layer costs one gather + expansion and one (F, D, D) moment
     accumulation + batched eigensolve, all on that device; host labels only
     order the graph. Returns a new network on that device.
+
+    With ``mesh`` (``parallel.mesh.make_mesh``) the samples and their
+    labels are cut to a count that the mesh's "data" axis divides, and the
+    samples are sharded over it: each device gathers, expands and
+    propagates its own rows, the moments are sums of per-device partials
+    on the first device (``models.moments``), the solve runs there and the
+    weights go to every device. The network comes back on the first
+    device.
+
+    The layer inputs are expanded in float32, as the network runs them,
+    and their moments accumulated in float64 (the JAX trainer accumulates
+    float32). The serial scatter is a difference of large sums; with
+    float32 sums its trailing slow directions follow the summation order:
+    on tests/test_torch_parallel.py's serial set the JAX trainer, sharded
+    or not, and a float32 port reproduced the 4th and 5th features of a
+    float64 reference to canonical correlations of 0.69 and 0.05 to 0.61
+    and 0.28, and an 8-way sharded float32 port to 0.9999, so unsharded
+    and sharded runs parted. In float64 they agree.
     """
     if not isinstance(x, torch.Tensor):
         raise TypeError("train_network trains on a tensor, on its device")
-    dev = x.device
     cur = x.to(torch.float32)
+    if mesh is None:
+        devices = [x.device]
+        blocks = [cur]
+    else:
+        # A device-divisible sample count, as the JAX trainer cuts it.
+        devices = mesh.axis_devices("data")
+        n_keep = (cur.shape[0] // len(devices)) * len(devices)
+        cur = cur[:n_keep]
+        if labels is not None:
+            labels = np.asarray(labels)[:n_keep]
+        blocks = mesh_mod.shard_to(devices, cur)
+    dev = devices[0]
     params = []
     for li, spec in enumerate(net.specs):
         t0 = time.perf_counter()
-        index = torch.as_tensor(spec.indices_array(), dtype=torch.int64,
-                                device=dev)
-        inp = spec.expansion(cur[:, index])              # (N, F, De)
-        de = inp.shape[-1]
+        indices = mesh_mod.replicate_to(devices, torch.as_tensor(
+            spec.indices_array(), dtype=torch.int64))
+        # The moments accumulate in float64 (see the docstring).
+        inp = [spec.expansion(b[:, i]).double()
+               for b, i in zip(blocks, indices)]
+        de = inp[0].shape[-1]                            # (n, F, De) each
         if spec.node == "pca":
             mean, B = moments.mean_cov(inp)
             W = moments.solve_pca_device(B, spec.out_dim)
@@ -111,7 +137,8 @@ def train_network(net: HierarchicalNetwork, x: torch.Tensor,
         del inp
         node = LinearNode(mean, W)
         params.append(node)
-        cur = apply_layer(spec, node, index, cur)
+        blocks = [apply_layer(spec, n, i, b) for b, n, i in zip(
+            blocks, mesh_mod.replicate_to(devices, node), indices)]
         if verbose:
             _sync(dev)
             print(f"  layer {li}: fields={spec.num_fields} in={de} "
@@ -297,17 +324,24 @@ def train_pipeline(out_dir: str, cfg: TrainConfig = TrainConfig(),
 
     ``reuse``: substrings of network names to load from ``out_dir``
     instead of retraining (e.g. ("pose", "eye") retrains only disc/age).
-    ``data_mesh`` above 0 raises: the data mesh is not ported.
+    ``data_mesh``: shard every network's moment accumulation over a data
+    mesh of that many devices of ``device``'s kind (see
+    :func:`train_network`); 0 = one device, and any N >= 1 builds a mesh,
+    as in the JAX package.
 
     Every network logs ``[train] <name>: done (render .. s, fit .. s,
     features .. s, gaussian .. s)``, the host-clock seconds (device work
     included) of its dataset, its layer fits, its feature pass and its
     classifier fits.
     """
-    if data_mesh:
-        raise NotImplementedError(MESH_NOT_PORTED)
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
+    mesh = None
+    if data_mesh:
+        mesh = mesh_mod.make_mesh(data_mesh, ("data",), device=device)
+        if verbose:
+            print(f"[train] moment accumulation sharded over a "
+                  f"{data_mesh}-device data mesh", flush=True)
 
     def _reusable(name):
         return any(r in name for r in reuse) and os.path.exists(
@@ -391,7 +425,8 @@ def train_pipeline(out_dir: str, cfg: TrainConfig = TrainConfig(),
         labk = np.stack([labels[c] for c in cols], axis=1)
         with _timed(times, "fit", device):
             net = train_network(net, x, graph="serial", labels=labk,
-                                num_groups=cfg.pose_classes, verbose=verbose,
+                                mesh=mesh, num_groups=cfg.pose_classes,
+                                verbose=verbose,
                                 label_weights=weights)
         nets[name] = net
         with _timed(times, "features", device):
@@ -425,6 +460,7 @@ def train_pipeline(out_dir: str, cfg: TrainConfig = TrainConfig(),
         lab2 = np.stack([labels["x"], labels["y"]], axis=1)
         with _timed(times, "fit", device):
             net = train_network(net, x, graph="serial", labels=lab2,
+                                mesh=mesh,
                                 num_groups=cfg.pose_classes, verbose=verbose)
         nets["net_eye"] = net
         with _timed(times, "features", device):
@@ -469,6 +505,7 @@ def train_pipeline(out_dir: str, cfg: TrainConfig = TrainConfig(),
                         axis=1)
         with _timed(times, "fit", device):
             net = train_network(net, x, graph="serial", labels=lab3,
+                                mesh=mesh,
                                 num_groups=20, verbose=verbose,
                                 label_weights=(2.0, 1.0, 1.0))
         nets["net_age"] = net
@@ -521,11 +558,13 @@ def train_pipeline(out_dir: str, cfg: TrainConfig = TrainConfig(),
                 if serial:
                     x, cls, avg, frac = out
                     net = train_network(net, x, graph="serial", labels=frac,
-                                        num_groups=50, verbose=verbose)
+                                        num_groups=50, mesh=mesh,
+                                        verbose=verbose)
                 else:
                     x, cls, avg = out
                     net = train_network(net, x, graph="clustered",
-                                        labels=cls, verbose=verbose)
+                                        labels=cls, mesh=mesh,
+                                        verbose=verbose)
             d_nets[name] = net
             with _timed(times, "features", device):
                 feats = _execute(net, x)

@@ -420,8 +420,14 @@ def test_cli_defaults_to_the_card(tmp_path, small_artifacts):
 
 
 def test_cli_data_mesh_names_the_queue_item(tmp_path, small_artifacts):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _small_run(tmp_path, small_artifacts, ["--data_mesh=2"])
+    """The data mesh is ported (the name is kept from when the switch
+    raised): ``--data_mesh=2 --device=cpu`` writes the bytes the tool
+    writes without the switch."""
+    assert _small_run(tmp_path, small_artifacts, []) == 0
+    plain = (tmp_path / "out0.txt").read_bytes()
+    (tmp_path / "out0.txt").unlink()
+    assert _small_run(tmp_path, small_artifacts, ["--data_mesh=2"]) == 0
+    assert plain and (tmp_path / "out0.txt").read_bytes() == plain
 
 
 def test_cli_evaluation_reports(tmp_path, small_artifacts, capsys):

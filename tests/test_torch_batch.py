@@ -752,9 +752,19 @@ def test_u16_wire_range_guards(models):
 
 
 def test_data_mesh_is_not_ported(models):
+    """The data mesh is ported (the name is kept from when it was not):
+    ``FaceDetector(data_mesh=2, device="cpu")`` gives ``detect`` the
+    results of ``data_mesh=0``, the window batch sharded over two CPU
+    copies."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_detector.FaceDetector(tm, TConfig(data_mesh=2), device="cpu")
+    img = _images(1, 1)[0]
+    det = t_detector.FaceDetector(tm, TConfig(data_mesh=2, **SMALL),
+                                  device="cpu")
+    assert len(det._mesh.axis_devices("data")) == 2
+    want = t_detector.FaceDetector(tm, TConfig(**SMALL),
+                                   device="cpu").detect(img)
+    assert want
+    _assert_same_lists([det.detect(img)], [want], px_tol=SELF_TOL["atol"])
 
 
 def test_batch_entry_points_default_to_cuda(models):

@@ -26,6 +26,7 @@ from pyfaceanalysis_torch.engine import eyes as t_eyes
 from pyfaceanalysis_torch.engine import nms as t_nms
 from pyfaceanalysis_torch.io import artifacts as t_art
 from pyfaceanalysis_torch.io.writers import write_detections as t_write
+from pyfaceanalysis_torch.parallel import dryrun as t_dryrun
 from pyfaceanalysis_tpu.config import DetectorConfig as JConfig
 from pyfaceanalysis_tpu.config import NetGeometry
 from pyfaceanalysis_tpu.engine import cascade as j_cascade
@@ -87,6 +88,12 @@ def test_entry_points_default_to_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         t_detector.DetectionModel.load(ART)
+    # The dry run, as a function and as a command, builds its mesh on the
+    # cards unless asked for the CPU.
+    with pytest.raises(RuntimeError, match="asked for 1 CUDA devices"):
+        t_dryrun.dryrun_multichip(1)
+    with pytest.raises(RuntimeError, match="asked for 2 CUDA devices"):
+        t_dryrun.main(["2"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

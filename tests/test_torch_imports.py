@@ -44,6 +44,7 @@ assert not torch.cuda.is_initialized()
 
 
 def test_module_list_holds_the_command_line_layer():
+    """Every module of the port is probed, the data mesh's among them."""
     assert len(MODULES) == len(set(MODULES)) > 40
     assert {"pyfaceanalysis_torch", "pyfaceanalysis_torch.apps",
             "pyfaceanalysis_torch.apps.detect",
@@ -57,6 +58,9 @@ def test_module_list_holds_the_command_line_layer():
             "pyfaceanalysis_torch.utils.compile_cache",
             "pyfaceanalysis_torch.parallel",
             "pyfaceanalysis_torch.parallel.multihost",
+            "pyfaceanalysis_torch.parallel.mesh",
+            "pyfaceanalysis_torch.parallel.train_step",
+            "pyfaceanalysis_torch.parallel.dryrun",
             "pyfaceanalysis_torch.ops.cuda_gather"} <= set(MODULES)
 
 

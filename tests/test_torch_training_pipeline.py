@@ -15,7 +15,8 @@ pipeline and ``apps.train``.
   the directory loads in both packages with 22 classifiers, the port's
   detector runs on it, and ``reuse`` reloads the networks unchanged.
 - ``apps.train`` parses every switch into the TrainConfig JAX's tool
-  builds; ``--data_mesh`` and no card raise.
+  builds; ``--data_mesh=2`` reaches the trainer and trains the tiny
+  pipeline on a 2-device CPU mesh; no card raises.
 """
 
 import dataclasses
@@ -260,12 +261,25 @@ def test_reuse_reloads_the_networks(tiny_dir, tmp_path):
 
 # --- entry points ------------------------------------------------------------
 
-def test_data_mesh_and_missing_card_raise(tmp_path):
+def test_data_mesh_and_missing_card_raise(tmp_path, monkeypatch):
+    """``apps.train --data_mesh=2`` hands 2 to train_pipeline, and a mesh of
+    two cards raises, naming the count, where fewer exist (the JAX
+    make_mesh would shrink the mesh). No card: every entry point raises."""
     out = str(tmp_path / "x")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tr.train_pipeline(out, data_mesh=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_app.main(["--out_dir", out, "--data_mesh=2", "--device=cpu"])
+    seen = {}
+    monkeypatch.setattr(t_tr, "train_pipeline",
+                        lambda out_dir, cfg, data_mesh=0, **kw:
+                        seen.update(data_mesh=data_mesh, **kw))
+    assert t_app.main(["--out_dir", out, "--data_mesh=2",
+                       "--device=cpu"]) == 0
+    assert seen == dict(data_mesh=2, reuse=(), device="cpu")
+    monkeypatch.undo()
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < 2:
+        from pyfaceanalysis_torch.parallel.mesh import make_mesh
+        with pytest.raises(RuntimeError, match=f"asked for 2 CUDA devices "
+                                               f"and found {count}"):
+            make_mesh(2, device="cuda")
     assert not os.path.exists(out)
     if torch.cuda.is_available():
         return                      # the missing-card half needs no card
@@ -276,6 +290,34 @@ def test_data_mesh_and_missing_card_raise(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert not os.path.exists(out)
+
+
+def test_tiny_pipeline_on_a_data_mesh(tiny_dir, tmp_path):
+    """``apps.train --data_mesh=2 --device=cpu`` at the tiny sizes trains
+    every network on a 2-device CPU mesh: the directory loads with 22
+    classifiers and each network computes the unsharded run's features
+    (canonical correlations of the first five, as tests/test_parallel.py
+    holds its mesh trainer)."""
+    from pyfaceanalysis_torch.engine import detector as t_det
+    out = str(tmp_path / "mesh")
+    argv = ["--out_dir", out, "--data_mesh=2", "--device=cpu",
+            "--no_calibrate", "--no_final_disc", "--real_frac=0",
+            "--real_bg_frac=0"] + [f"--{k}={TINY[k]}" for k in (
+                "num_faces", "steps_per_face", "age_samples")]
+    assert t_app.main(argv) == 0
+    mesh_model = t_det.DetectionModel.load(out, device="cpu")
+    plain = t_det.DetectionModel.load(tiny_dir, device="cpu")
+    assert len(mesh_model.classifiers) == 22
+    rng = np.random.RandomState(4)
+    for name in ("net_pose0", "net_eye"):
+        x = torch.from_numpy(rng.rand(200, 64 * 64).astype(np.float32))
+        with torch.no_grad():
+            a = plain.nets[name](x).numpy()[:, :5]
+            b = mesh_model.nets[name](x).numpy()[:, :5]
+        q = [np.linalg.qr((f - f.mean(0)) / (f.std(0) + 1e-9))[0]
+             for f in (a, b)]
+        cc = np.linalg.svd(q[0].T @ q[1], compute_uv=False)
+        assert cc.mean() > 0.98 and cc.min() > 0.9, (name, cc)
 
 
 ARGVS = [
