@@ -1,0 +1,10 @@
+"""Median, over every request completed in the window, of the host-clock
+time from the call to its return (which follows the result pull)."""
+
+import numpy as np
+
+
+def read(window, setup_s):
+    lat = [(r.end - r.start) * 1e3 for r in window.requests
+           if r.start is not None]
+    return float(np.percentile(lat, 50)) if lat else None
