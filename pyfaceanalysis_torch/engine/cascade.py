@@ -25,6 +25,7 @@ canvas (``extract_patches_rotate``) or each window's own pyramid level
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +47,7 @@ from pyfaceanalysis_torch.ops.patches import (
     sample_patches_pyramid_ref,
 )
 from pyfaceanalysis_torch.ops.pyramid import crop_patches
+from pyfaceanalysis_torch.utils.profiling import annotate
 
 
 class StagePlan(NamedTuple):
@@ -194,7 +196,8 @@ def _take(rows: List[dict], idx: torch.Tensor,
         r = rows[0]
         return [{k: None if r[k] is None else r[k][idx] for k in _ROWS}]
     offsets = np.cumsum([0] + [r["mask"].shape[0] for r in rows])
-    chosen = idx.cpu().numpy()
+    with annotate("pfa.pull"):
+        chosen = idx.cpu().numpy()
     src = np.searchsorted(offsets, chosen, side="right") - 1
     sizes = [len(p) for p in np.array_split(chosen, len(devices))]
     bounds = np.cumsum([0] + sizes)
@@ -241,6 +244,12 @@ def _stash(host: dict, device: torch.device, array: np.ndarray):
     arrs = host.setdefault(device, [])
     arrs.append(array)
     return device, len(arrs) - 1
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_span(si: int, kind: str) -> str:
+    """The span name of stage ``si`` (utils.profiling)."""
+    return f"pfa.stage.{si:02d}.{kind}"
 
 
 def _stage_rows(st: StagePlan, si: int, shard: Shard, r: dict,
@@ -400,12 +409,14 @@ def run_cascade_shards(plan: Tuple[StagePlan, ...], geom: NetGeometry,
     fused = n_images > 1 and rows[0]["img_idx"] is not None
     n_per_cur = n_per_image          # rows per image (fused mode only)
 
+    n_rows = sum(r["mask"].shape[0] for r in rows)
     for si, st in enumerate(plan):
-        for shard, r in zip(shards, rows):
-            with _on(shard.image.device):
-                _stage_rows(st, si, shard, r, geom, cfg, patch_hw, samplers,
-                            compute_dtype, cut_offs, min_scale_radio,
-                            max_scale_radio)
+        with annotate(_stage_span(si, st.kind), rows=n_rows):
+            for shard, r in zip(shards, rows):
+                with _on(shard.image.device):
+                    _stage_rows(st, si, shard, r, geom, cfg, patch_hw,
+                                samplers, compute_dtype, cut_offs,
+                                min_scale_radio, max_scale_radio)
         if st.kind == "Disc":
             # Mid-cascade compaction: after the first Disc gate and again
             # after Disc5, keep the best rows (alive first, then lowest
@@ -415,31 +426,35 @@ def run_cascade_shards(plan: Tuple[StagePlan, ...], geom: NetGeometry,
                 target, fired_rung1 = cfg.mid_compact, True
             elif st.serial >= 5 and not fired_rung2 and cfg.mid_compact2:
                 target, fired_rung2 = cfg.mid_compact2, True
-            cur_rows = (n_per_cur if fused
-                        else sum(r["mask"].shape[0] for r in rows))
+            cur_rows = n_per_cur if fused else n_rows
             if target and not collect_trace and target < cur_rows:
-                ranks = []
-                for r in rows:
-                    rank = torch.where(r["mask"],
-                                       torch.clamp(r["conf"], 0.0, 1.999),
-                                       torch.full_like(r["conf"], 2.0))
+                with annotate("pfa.rung", rows_in=n_rows) as span:
+                    ranks = []
+                    for r in rows:
+                        rank = torch.where(
+                            r["mask"], torch.clamp(r["conf"], 0.0, 1.999),
+                            torch.full_like(r["conf"], 2.0))
+                        if fused:
+                            rank = rank + 4.0 * r["img_idx"].to(
+                                torch.float32)
+                        ranks.append(rank)
+                    rank = _gather(ranks)
                     if fused:
-                        rank = rank + 4.0 * r["img_idx"].to(torch.float32)
-                    ranks.append(rank)
-                rank = _gather(ranks)
-                if fused:
-                    # Per-image rung: rows are grouped contiguously by
-                    # image (n_per_cur each; padding carries the img_idx
-                    # sentinel n_images and sorts last), so one stable
-                    # composite-key sort yields each image's rows in a
-                    # contiguous sorted block of exactly n_per_cur entries.
-                    order = torch.argsort(rank, stable=True)
-                    idx = order[:n_images * n_per_cur].reshape(
-                        n_images, n_per_cur)[:, :target].reshape(-1)
-                    n_per_cur = target
-                else:
-                    idx = torch.argsort(rank, stable=True)[:target]
-                rows = _take(rows, idx, devices)
+                        # Per-image rung: rows are grouped contiguously by
+                        # image (n_per_cur each; padding carries the
+                        # img_idx sentinel n_images and sorts last), so one
+                        # stable composite-key sort yields each image's
+                        # rows in a contiguous sorted block of exactly
+                        # n_per_cur entries.
+                        order = torch.argsort(rank, stable=True)
+                        idx = order[:n_images * n_per_cur].reshape(
+                            n_images, n_per_cur)[:, :target].reshape(-1)
+                        n_per_cur = target
+                    else:
+                        idx = torch.argsort(rank, stable=True)[:target]
+                    rows = _take(rows, idx, devices)
+                    n_rows = int(idx.shape[0])
+                    span.update(rows_out=n_rows)
 
         if collect_trace:
             trace.append(tuple(_gather([r[k] for r in rows])

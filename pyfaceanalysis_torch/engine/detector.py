@@ -49,6 +49,7 @@ from pyfaceanalysis_torch.ops.gaussian import GaussianRegressor
 from pyfaceanalysis_torch.ops.pyramid import build_pyramid, build_pyramid_batch
 from pyfaceanalysis_torch.ops.ridge import RidgeRegressor
 from pyfaceanalysis_torch.parallel import mesh as mesh_mod
+from pyfaceanalysis_torch.utils.profiling import annotate
 
 Classifier = Union[GaussianRegressor, RidgeRegressor]
 
@@ -240,7 +241,10 @@ def _unpack_wire(block: np.ndarray, canvas_side: int) -> np.ndarray:
 def _pull(block: Optional[torch.Tensor]) -> Optional[np.ndarray]:
     """The device-to-host copy of a result block (waits for the device);
     None passes through (the empty-grid sentinel)."""
-    return None if block is None else block.cpu().numpy()
+    if block is None:
+        return None
+    with annotate("pfa.pull"):
+        return block.cpu().numpy()
 
 
 def _block_rows(block: np.ndarray) -> np.ndarray:
@@ -309,56 +313,60 @@ def _detect_core(model: DetectionModel, cfg: DetectorConfig, k_out: int,
     out = cascade_mod.run_cascade_shards(model.plan, geom, cfg, patch_hw,
                                          shards)
 
-    # Alive rows first, best (lowest) Disc confidence first within them.
-    # The eye sub-cascade runs on at most eye_max_faces rows; rows beyond
-    # the cap keep the geometric eye prior and skip the too-far gate.
-    k_out = min(k_out, out.mask.shape[0])
-    eye_cap = min(k_out, max(cfg.eye_max_faces, 8))
-    rank = torch.where(out.mask, out.conf, torch.full_like(out.conf, 2.0))
-    idx = torch.argsort(rank, stable=True)[:k_out]
-    boxes = out.boxes[idx]
-    angles = out.angles[idx]
-    conf = out.conf[idx]
-    valid = out.mask[idx]
+    with annotate("pfa.eyes") as span:
+        # Alive rows first, best (lowest) Disc confidence first within them.
+        # The eye sub-cascade runs on at most eye_max_faces rows; rows beyond
+        # the cap keep the geometric eye prior and skip the too-far gate.
+        k_out = min(k_out, out.mask.shape[0])
+        eye_cap = min(k_out, max(cfg.eye_max_faces, 8))
+        rank = torch.where(out.mask, out.conf, torch.full_like(out.conf, 2.0))
+        idx = torch.argsort(rank, stable=True)[:k_out]
+        boxes = out.boxes[idx]
+        angles = out.angles[idx]
+        conf = out.conf[idx]
+        valid = out.mask[idx]
 
-    _, l_boxes, r_boxes = geometry.compute_approximate_eye_boxes_coordinates(
-        boxes, angles, face_sampling=DESIRED_SAMPLING,
-        eye_sampling=EYE_SAMPLING)
-    eye_boxes = torch.cat([l_boxes[:eye_cap], r_boxes[:eye_cap]], dim=0)
-    both_angles = torch.cat([angles[:eye_cap], angles[:eye_cap]], dim=0)
-    samplers = (cascade_mod.level_samplers(cfg, image.device)
-                if pyramid is not None else None)
-    eye_kw = dict(pyramid=pyramid, pyr_scales=pyr_scales,
-                  level_sampler=None if samplers is None else samplers[1])
-    eye_net = model.nets["net_eye"]
-    eye_args = (eye_net, model.clf_input_dim("EyeLX"),
-                model.clf_input_dim("EyeLY"),
-                (eye_geom.subimage_height, eye_geom.subimage_width), image,
-                model.classifier("EyeLX"), model.classifier("EyeLY"))
-    pass1_boxes, max_reg = eyes_mod.localize_eyes(
-        *eye_args, eye_boxes, both_angles, **eye_kw)
-    # Optional refinement passes: a pure OUTPUT refinement (config.eye_iters).
-    new_boxes = pass1_boxes
-    for _ in range(cfg.eye_iters - 1):
-        new_boxes, _ = eyes_mod.localize_eyes(
-            *eye_args, new_boxes, both_angles, **eye_kw)
-    l_new = torch.cat([pass1_boxes[:eye_cap], l_boxes[eye_cap:]], dim=0)
-    r_new = torch.cat([pass1_boxes[eye_cap:], r_boxes[eye_cap:]], dim=0)
-    too_far = max_reg >= cfg.tolerance_xy_eye
-    bad = too_far[:eye_cap] | too_far[eye_cap:]
-    bad = torch.cat([bad, torch.zeros(k_out - eye_cap, dtype=torch.bool,
-                                      device=bad.device)], dim=0)
-    valid = valid & torch.logical_not(bad)
-    l_c = (l_new[:, 0:2] + l_new[:, 2:4]) / 2.0
-    r_c = (r_new[:, 0:2] + r_new[:, 2:4]) / 2.0
-    cols = [boxes, angles[:, None], l_c, r_c, conf[:, None],
-            valid[:, None].to(torch.float32)]
-    if cfg.eye_iters > 1:
-        l_ref = torch.cat([new_boxes[:eye_cap], l_boxes[eye_cap:]], dim=0)
-        r_ref = torch.cat([new_boxes[eye_cap:], r_boxes[eye_cap:]], dim=0)
-        cols += [(l_ref[:, 0:2] + l_ref[:, 2:4]) / 2.0,
-                 (r_ref[:, 0:2] + r_ref[:, 2:4]) / 2.0]
-    return torch.cat(cols, dim=1)
+        _, l_boxes, r_boxes = \
+            geometry.compute_approximate_eye_boxes_coordinates(
+                boxes, angles, face_sampling=DESIRED_SAMPLING,
+                eye_sampling=EYE_SAMPLING)
+        eye_boxes = torch.cat([l_boxes[:eye_cap], r_boxes[:eye_cap]], dim=0)
+        span.update(rows=int(eye_boxes.shape[0]))
+        both_angles = torch.cat([angles[:eye_cap], angles[:eye_cap]], dim=0)
+        samplers = (cascade_mod.level_samplers(cfg, image.device)
+                    if pyramid is not None else None)
+        eye_kw = dict(pyramid=pyramid, pyr_scales=pyr_scales,
+                      level_sampler=None if samplers is None else samplers[1])
+        eye_net = model.nets["net_eye"]
+        eye_args = (eye_net, model.clf_input_dim("EyeLX"),
+                    model.clf_input_dim("EyeLY"),
+                    (eye_geom.subimage_height, eye_geom.subimage_width), image,
+                    model.classifier("EyeLX"), model.classifier("EyeLY"))
+        pass1_boxes, max_reg = eyes_mod.localize_eyes(
+            *eye_args, eye_boxes, both_angles, **eye_kw)
+        # Optional refinement passes: a pure OUTPUT refinement
+        # (config.eye_iters).
+        new_boxes = pass1_boxes
+        for _ in range(cfg.eye_iters - 1):
+            new_boxes, _ = eyes_mod.localize_eyes(
+                *eye_args, new_boxes, both_angles, **eye_kw)
+        l_new = torch.cat([pass1_boxes[:eye_cap], l_boxes[eye_cap:]], dim=0)
+        r_new = torch.cat([pass1_boxes[eye_cap:], r_boxes[eye_cap:]], dim=0)
+        too_far = max_reg >= cfg.tolerance_xy_eye
+        bad = too_far[:eye_cap] | too_far[eye_cap:]
+        bad = torch.cat([bad, torch.zeros(k_out - eye_cap, dtype=torch.bool,
+                                          device=bad.device)], dim=0)
+        valid = valid & torch.logical_not(bad)
+        l_c = (l_new[:, 0:2] + l_new[:, 2:4]) / 2.0
+        r_c = (r_new[:, 0:2] + r_new[:, 2:4]) / 2.0
+        cols = [boxes, angles[:, None], l_c, r_c, conf[:, None],
+                valid[:, None].to(torch.float32)]
+        if cfg.eye_iters > 1:
+            l_ref = torch.cat([new_boxes[:eye_cap], l_boxes[eye_cap:]], dim=0)
+            r_ref = torch.cat([new_boxes[eye_cap:], r_boxes[eye_cap:]], dim=0)
+            cols += [(l_ref[:, 0:2] + l_ref[:, 2:4]) / 2.0,
+                     (r_ref[:, 0:2] + r_ref[:, 2:4]) / 2.0]
+        return torch.cat(cols, dim=1)
 
 
 def _detect_core_batch(model: DetectionModel, cfg: DetectorConfig,
@@ -399,84 +407,88 @@ def _detect_core_batch(model: DetectionModel, cfg: DetectorConfig,
         model.plan, geom, cfg, patch_hw, shards, n_images=n_images,
         n_per_image=n_per_image)
 
-    # Per-image ranked top-k via one stable composite-key sort: rows are
-    # grouped contiguously by image (exactly n_last per image; padding
-    # sorts last through the img_idx sentinel) -- see run_cascade.
-    n_last = cascade_mod.compacted_rows_per_image(model.plan, cfg,
-                                                  n_per_image)
-    k = min(k_out, n_last)
-    rank = (torch.where(out.mask, torch.clamp(out.conf, 0.0, 1.999),
-                        torch.full_like(out.conf, 2.0))
-            + 4.0 * out.img_idx.to(torch.float32))
-    order = torch.argsort(rank, stable=True)
-    idx = order[:n_images * n_last].reshape(n_images, n_last)[:, :k]
-    flat = idx.reshape(-1)
-    boxes = out.boxes[flat]                                # (B*k, 4)
-    angles = out.angles[flat]
-    conf = out.conf[flat]
-    valid = out.mask[flat]
+    with annotate("pfa.eyes") as span:
+        # Per-image ranked top-k via one stable composite-key sort: rows are
+        # grouped contiguously by image (exactly n_last per image; padding
+        # sorts last through the img_idx sentinel) -- see run_cascade.
+        n_last = cascade_mod.compacted_rows_per_image(model.plan, cfg,
+                                                      n_per_image)
+        k = min(k_out, n_last)
+        rank = (torch.where(out.mask, torch.clamp(out.conf, 0.0, 1.999),
+                            torch.full_like(out.conf, 2.0))
+                + 4.0 * out.img_idx.to(torch.float32))
+        order = torch.argsort(rank, stable=True)
+        idx = order[:n_images * n_last].reshape(n_images, n_last)[:, :k]
+        flat = idx.reshape(-1)
+        boxes = out.boxes[flat]                                # (B*k, 4)
+        angles = out.angles[flat]
+        conf = out.conf[flat]
+        valid = out.mask[flat]
 
-    # Eye sub-cascade on the top eye_cap rows of EACH image (same cap
-    # semantics as the single-image path; rows beyond the cap keep the
-    # geometric prior and skip the too-far gate).
-    eye_cap = min(k, max(cfg.eye_max_faces, 8))
-    _, l_all, r_all = geometry.compute_approximate_eye_boxes_coordinates(
-        boxes, angles, face_sampling=DESIRED_SAMPLING,
-        eye_sampling=EYE_SAMPLING)
-    l_all = l_all.reshape(n_images, k, 4)
-    r_all = r_all.reshape(n_images, k, 4)
-    sub = idx[:, :eye_cap].reshape(-1)                     # (B*eye_cap,)
-    ang_sub = out.angles[sub]
-    img_sub = out.img_idx[sub]
-    eye_boxes = torch.cat([l_all[:, :eye_cap].reshape(-1, 4),
-                           r_all[:, :eye_cap].reshape(-1, 4)], dim=0)
-    both_angles = torch.cat([ang_sub, ang_sub], dim=0)
-    both_img = torch.cat([img_sub, img_sub], dim=0)
-    samplers = (cascade_mod.level_samplers(cfg, images.device)
-                if pyramid is not None else None)
-    eye_kw = dict(pyramid=pyramid, pyr_scales=pyr_scales,
-                  level_sampler=None if samplers is None else samplers[1],
-                  image_idx=both_img, n_base_levels=n_levels)
-    eye_args = (model.nets["net_eye"], model.clf_input_dim("EyeLX"),
-                model.clf_input_dim("EyeLY"),
-                (eye_geom.subimage_height, eye_geom.subimage_width), images,
-                model.classifier("EyeLX"), model.classifier("EyeLY"))
-    pass1_boxes, max_reg = eyes_mod.localize_eyes(
-        *eye_args, eye_boxes, both_angles, **eye_kw)
-    # config.eye_iters refinement passes; pure output refinement -- gate,
-    # NMS and heads consume pass 1, refined centers appended as cols 11-14
-    # (see _detect_core).
-    new_boxes = pass1_boxes
-    for _ in range(cfg.eye_iters - 1):
-        new_boxes, _ = eyes_mod.localize_eyes(
-            *eye_args, new_boxes, both_angles, **eye_kw)
-    m = n_images * eye_cap
+        # Eye sub-cascade on the top eye_cap rows of EACH image (same cap
+        # semantics as the single-image path; rows beyond the cap keep the
+        # geometric prior and skip the too-far gate).
+        eye_cap = min(k, max(cfg.eye_max_faces, 8))
+        _, l_all, r_all = geometry.compute_approximate_eye_boxes_coordinates(
+            boxes, angles, face_sampling=DESIRED_SAMPLING,
+            eye_sampling=EYE_SAMPLING)
+        l_all = l_all.reshape(n_images, k, 4)
+        r_all = r_all.reshape(n_images, k, 4)
+        sub = idx[:, :eye_cap].reshape(-1)                     # (B*eye_cap,)
+        ang_sub = out.angles[sub]
+        img_sub = out.img_idx[sub]
+        eye_boxes = torch.cat([l_all[:, :eye_cap].reshape(-1, 4),
+                               r_all[:, :eye_cap].reshape(-1, 4)], dim=0)
+        span.update(rows=int(eye_boxes.shape[0]))
+        both_angles = torch.cat([ang_sub, ang_sub], dim=0)
+        both_img = torch.cat([img_sub, img_sub], dim=0)
+        samplers = (cascade_mod.level_samplers(cfg, images.device)
+                    if pyramid is not None else None)
+        eye_kw = dict(pyramid=pyramid, pyr_scales=pyr_scales,
+                      level_sampler=None if samplers is None else samplers[1],
+                      image_idx=both_img, n_base_levels=n_levels)
+        eye_args = (model.nets["net_eye"], model.clf_input_dim("EyeLX"),
+                    model.clf_input_dim("EyeLY"),
+                    (eye_geom.subimage_height, eye_geom.subimage_width),
+                    images, model.classifier("EyeLX"),
+                    model.classifier("EyeLY"))
+        pass1_boxes, max_reg = eyes_mod.localize_eyes(
+            *eye_args, eye_boxes, both_angles, **eye_kw)
+        # config.eye_iters refinement passes; pure output refinement -- gate,
+        # NMS and heads consume pass 1, refined centers appended as cols 11-14
+        # (see _detect_core).
+        new_boxes = pass1_boxes
+        for _ in range(cfg.eye_iters - 1):
+            new_boxes, _ = eyes_mod.localize_eyes(
+                *eye_args, new_boxes, both_angles, **eye_kw)
+        m = n_images * eye_cap
 
-    def fin_centers(eb):
-        l_fin = torch.cat([eb[:m].reshape(n_images, eye_cap, 4),
-                           l_all[:, eye_cap:]], dim=1)
-        r_fin = torch.cat([eb[m:].reshape(n_images, eye_cap, 4),
-                           r_all[:, eye_cap:]], dim=1)
-        return ((l_fin[..., 0:2] + l_fin[..., 2:4]) / 2.0,
-                (r_fin[..., 0:2] + r_fin[..., 2:4]) / 2.0)
+        def fin_centers(eb):
+            l_fin = torch.cat([eb[:m].reshape(n_images, eye_cap, 4),
+                               l_all[:, eye_cap:]], dim=1)
+            r_fin = torch.cat([eb[m:].reshape(n_images, eye_cap, 4),
+                               r_all[:, eye_cap:]], dim=1)
+            return ((l_fin[..., 0:2] + l_fin[..., 2:4]) / 2.0,
+                    (r_fin[..., 0:2] + r_fin[..., 2:4]) / 2.0)
 
-    l_c, r_c = fin_centers(pass1_boxes)
-    too_far = (max_reg >= cfg.tolerance_xy_eye).reshape(2, n_images, eye_cap)
-    bad = too_far[0] | too_far[1]                          # (B, eye_cap)
-    bad = torch.cat([bad, torch.zeros((n_images, k - eye_cap),
-                                      dtype=torch.bool, device=bad.device)],
-                    dim=1)
-    valid = valid.reshape(n_images, k) & torch.logical_not(bad)
-    cols = [boxes.reshape(n_images, k, 4),
-            angles.reshape(n_images, k)[..., None], l_c, r_c,
-            conf.reshape(n_images, k)[..., None],
-            valid[..., None].to(torch.float32)]
-    if cfg.eye_iters > 1:
-        cols += list(fin_centers(new_boxes))
-    block = torch.cat(cols, dim=2)
-    if cfg.wire_format == "u16":
-        block = _pack_wire(block, max(images.shape[-2:]))
-    return block
+        l_c, r_c = fin_centers(pass1_boxes)
+        too_far = (max_reg >= cfg.tolerance_xy_eye).reshape(
+            2, n_images, eye_cap)
+        bad = too_far[0] | too_far[1]                          # (B, eye_cap)
+        bad = torch.cat([bad, torch.zeros((n_images, k - eye_cap),
+                                          dtype=torch.bool,
+                                          device=bad.device)], dim=1)
+        valid = valid.reshape(n_images, k) & torch.logical_not(bad)
+        cols = [boxes.reshape(n_images, k, 4),
+                angles.reshape(n_images, k)[..., None], l_c, r_c,
+                conf.reshape(n_images, k)[..., None],
+                valid[..., None].to(torch.float32)]
+        if cfg.eye_iters > 1:
+            cols += list(fin_centers(new_boxes))
+        block = torch.cat(cols, dim=2)
+        if cfg.wire_format == "u16":
+            block = _pack_wire(block, max(images.shape[-2:]))
+        return block
 
 
 class FaceDetector:
@@ -548,24 +560,36 @@ class FaceDetector:
 
     # -- image preparation ---------------------------------------------------
 
-    def _grid_state(self, im_w: int, im_h: int, batch: int = 0):
-        """Cached (state, n_real, pyr) for a non-tracking grid.
+    def _grid_state(self, im_w: int, im_h: int, batch: int = 0,
+                    track: Optional[Tuple] = None):
+        """(state, n_real, pyr) of the window grid, cached for a
+        non-tracking grid.
 
         ``batch=0`` -> make_grid_state; ``batch=B`` -> the fused
-        make_batched_grid_state. The cascade never writes through a state,
-        so reuse across calls is safe."""
-        key = (im_w, im_h, batch)
-        hit = self._grid_cache.get(key)
-        if hit is None:
+        make_batched_grid_state; ``track`` -> the tracking grid around the
+        last detection, built anew. The cascade never writes through a
+        state, so reuse across calls is safe."""
+        with annotate("pfa.grid") as span:
             geom = self.model.spec.face_geom
-            if batch:
-                hit = cascade_mod.make_batched_grid_state(
-                    im_w, im_h, geom, self.config, batch, device=self.device)
-            else:
+            if track is not None:
                 hit = cascade_mod.make_grid_state(
-                    im_w, im_h, geom, self.config, device=self.device)
-            self._grid_cache[key] = hit
-        return hit
+                    im_w, im_h, geom, self.config, track, device=self.device)
+            else:
+                key = (im_w, im_h, batch)
+                hit = self._grid_cache.get(key)
+                if hit is None:
+                    if batch:
+                        hit = cascade_mod.make_batched_grid_state(
+                            im_w, im_h, geom, self.config, batch,
+                            device=self.device)
+                    else:
+                        hit = cascade_mod.make_grid_state(
+                            im_w, im_h, geom, self.config,
+                            device=self.device)
+                    self._grid_cache[key] = hit
+            span.update(rows=int(hit[0].mask.shape[0]),
+                        real=hit[1] * max(batch, 1))
+            return hit
 
     def _fit_canvas(self, h: int, w: int) -> Tuple[int, int]:
         """The canvas for (h, w) inputs. Inputs larger than the canvas
@@ -586,15 +610,18 @@ class FaceDetector:
 
     def _to_canvas(self, image: np.ndarray) -> torch.Tensor:
         """Pads into the fixed canvas on the device."""
-        H, W = self._fit_canvas(*image.shape)
-        return _pad_convert(_to_u8(image), H, W, self.device)
+        with annotate("pfa.upload"):
+            H, W = self._fit_canvas(*image.shape)
+            return _pad_convert(_to_u8(image), H, W, self.device)
 
-    def _to_canvas_batch(self, images: Sequence[np.ndarray]) -> torch.Tensor:
+    def _to_canvas_batch(self, images: Sequence[np.ndarray],
+                         request=None) -> torch.Tensor:
         """B same-sized (h, w) images -> (B, H, W) float canvas stack, in
         ONE host-to-device copy of the true image extents as uint8."""
-        H, W = self._fit_canvas(*images[0].shape)
-        return _pad_convert(np.stack([_to_u8(im) for im in images]), H, W,
-                            self.device)
+        with annotate("pfa.upload", request=request):
+            H, W = self._fit_canvas(*images[0].shape)
+            return _pad_convert(np.stack([_to_u8(im) for im in images]), H,
+                                W, self.device)
 
     def _use_pyramid(self, pyr) -> bool:
         """Pyramid path for the iter-0 extraction (nearest interp only)."""
@@ -626,25 +653,37 @@ class FaceDetector:
         """Detects faces in a grayscale (H, W) image with values in [0, 1]
         (already prescaled, see io.images.load_image); coordinates are in
         this frame."""
+        with annotate("pfa.detect"):
+            device_image = self._to_canvas(image)
+            with annotate("pfa.dispatch"):
+                block = self._dispatch_one(device_image, image.shape,
+                                           collect_trace)
+            if block is None:
+                return []
+            with annotate("pfa.finish", images=1):
+                return self._finish_one(device_image, block,
+                                        estimate_attributes)
+
+    def _dispatch_one(self, device_image: torch.Tensor,
+                      hw: Tuple[int, int], collect_trace: bool
+                      ) -> Optional[torch.Tensor]:
+        """Grid, pyramid and the enqueued (k_out, 11) block of one image
+        (None when the grid is empty)."""
         cfg = self.config
         model = self.model
-        im_h, im_w = image.shape
+        im_h, im_w = hw
         geom = model.spec.face_geom
-        device_image = self._to_canvas(image)
-
         track = self.tracked_face if (cfg.track_single_face and
                                       self.face_has_been_found) else None
-        if track is None:
-            state, n_real, pyr = self._grid_state(im_w, im_h)
-        else:
-            state, n_real, pyr = cascade_mod.make_grid_state(
-                im_w, im_h, geom, cfg, track, device=self.device)
+        state, n_real, pyr = self._grid_state(im_w, im_h, track=track)
         self.windows_scanned = n_real
         if n_real == 0:
-            return []
+            return None
         pyramid = crops = scales_arr = None
         if self._use_pyramid(pyr):
-            pyramid = build_pyramid(device_image, pyr.scales, pyr.level_hw)
+            with annotate("pfa.pyramid"):
+                pyramid = build_pyramid(device_image, pyr.scales,
+                                        pyr.level_hw)
             crops = pyr.crops
             scales_arr = self._scales(pyr)
 
@@ -657,19 +696,23 @@ class FaceDetector:
                 (geom.subimage_height, geom.subimage_width),
                 device_image, model.det_clfs, state, pyramid=pyramid,
                 crops=crops, pyr_scales=scales_arr, collect_trace=True)
-            self.last_trace = [tuple(t.cpu().numpy() for t in snap)
-                               for snap in trace]
+            with annotate("pfa.pull"):
+                self.last_trace = [tuple(t.cpu().numpy() for t in snap)
+                                   for snap in trace]
         shards = (None if self._mesh is None else self._apply_mesh(
             state, crops, device_image, pyramid, scales_arr))
-        block = _detect_core(model, cfg, cfg.max_detections, device_image,
-                             state, pyramid, crops, scales_arr, shards)
-        rows = _block_rows(_pull(block))            # the one result pull
-        if len(rows) == 0:
-            self._update_tracking(rows)
-            return []
+        return _detect_core(model, cfg, cfg.max_detections, device_image,
+                            state, pyramid, crops, scales_arr, shards)
 
-        purged = nms_mod.purge_detections(rows, cfg.purge_threshold)
+    def _finish_one(self, device_image: torch.Tensor, block: torch.Tensor,
+                    estimate_attributes: bool) -> List[Detection]:
+        """The one result pull, NMS, tracking, heads and assembly of one
+        image's block."""
+        cfg = self.config
+        purged = self._purge([_pull(block)])[0]
         self._update_tracking(purged)
+        if len(purged) == 0:
+            return []
         dets = self._assemble_batch(device_image[None], [purged],
                                     estimate_attributes)[0]
         if (estimate_attributes and cfg.save_age_estimation_images
@@ -717,8 +760,7 @@ class FaceDetector:
                         estimate_attributes))
                 return out
             stack, fut = self._dispatch_fused(images)
-            return self._finish_fused(stack, _pull(fut),
-                                      estimate_attributes)
+            return self._finish_fused(stack, fut, estimate_attributes)
 
         # Async mode: enqueue one cascade per image, pull afterwards.
         model = self.model
@@ -735,20 +777,22 @@ class FaceDetector:
             device_images.append(device_image)
             pyramid = crops = None
             if use_pyr:
-                pyramid = build_pyramid(device_image, pyr.scales,
-                                        pyr.level_hw)
+                with annotate("pfa.pyramid"):
+                    pyramid = build_pyramid(device_image, pyr.scales,
+                                            pyr.level_hw)
                 crops = pyr.crops
             futures.append(_detect_core(
                 model, cfg, cfg.max_detections, device_image, state,
                 pyramid, crops, scales_arr))
-        purged_per_image = [self._purge(_pull(fut)) for fut in futures]
+        purged_per_image = self._purge([_pull(fut) for fut in futures])
         return self._assemble_batch(torch.stack(device_images),
                                     purged_per_image, estimate_attributes)
 
     # -- fused-path pieces (shared by detect_batch and detect_stream) ---------
 
     def _dispatch_fused(self, images: Sequence[np.ndarray],
-                        stack: Optional[torch.Tensor] = None):
+                        stack: Optional[torch.Tensor] = None,
+                        request=None):
         """Copies a same-sized image batch to the device and enqueues the
         fused cascade.
 
@@ -757,49 +801,63 @@ class FaceDetector:
         cascade runs asynchronously -- callers can overlap it with host
         work or with pulling a previous batch (see detect_stream).
         ``stack`` may carry the canvas batch already on the device (the
-        stream's producer thread makes it; None = convert and copy here)."""
+        stream's producer thread makes it; None = convert and copy here).
+        ``request`` names the batch in the spans (utils.profiling)."""
         cfg, model = self.config, self.model
         im_h, im_w = images[0].shape
         B = len(images)
-        state_b, n_real, pyr_b = self._grid_state(im_w, im_h, batch=B)
-        self.windows_scanned = n_real
-        if stack is None:
-            stack = self._to_canvas_batch(images)
-        if n_real == 0:
-            # Image below the scale envelope: nothing to scan.
-            return stack, None
-        pyramid_b = crops_b = scales_b = None
-        n_levels = 0
-        if self._use_pyramid(pyr_b):
-            n_levels = len(pyr_b.scales)
-            pyramid_b = build_pyramid_batch(stack, pyr_b.scales,
-                                            pyr_b.level_hw)
-            crops_b = pyr_b.crops
-            scales_b = self._scales(pyr_b, tile=B)
-        shards = (None if self._mesh is None else self._apply_mesh(
-            state_b, crops_b, stack, pyramid_b, scales_b))
-        fut = _detect_core_batch(
-            model, cfg, cfg.max_detections, B, n_real, n_levels, stack,
-            state_b, pyramid_b, crops_b, scales_b, shards)
-        return stack, fut
+        with annotate("pfa.dispatch", request=request):
+            state_b, n_real, pyr_b = self._grid_state(im_w, im_h, batch=B)
+            self.windows_scanned = n_real
+            if stack is None:
+                stack = self._to_canvas_batch(images)
+            if n_real == 0:
+                # Image below the scale envelope: nothing to scan.
+                return stack, None
+            pyramid_b = crops_b = scales_b = None
+            n_levels = 0
+            if self._use_pyramid(pyr_b):
+                n_levels = len(pyr_b.scales)
+                with annotate("pfa.pyramid"):
+                    pyramid_b = build_pyramid_batch(stack, pyr_b.scales,
+                                                    pyr_b.level_hw)
+                crops_b = pyr_b.crops
+                scales_b = self._scales(pyr_b, tile=B)
+            shards = (None if self._mesh is None else self._apply_mesh(
+                state_b, crops_b, stack, pyramid_b, scales_b))
+            fut = _detect_core_batch(
+                model, cfg, cfg.max_detections, B, n_real, n_levels, stack,
+                state_b, pyramid_b, crops_b, scales_b, shards)
+            return stack, fut
 
-    def _purge(self, block: np.ndarray) -> np.ndarray:
-        rows = _block_rows(block)
-        if len(rows) == 0:
-            return np.zeros((0, 10))
-        return nms_mod.purge_detections(rows, self.config.purge_threshold)
+    def _purge(self, blocks: Iterable[np.ndarray]) -> List[np.ndarray]:
+        """Host NMS of the valid rows of each pulled block."""
+        with annotate("pfa.nms") as span:
+            out, rows_in = [], 0
+            for block in blocks:
+                rows = _block_rows(block)
+                rows_in += len(rows)
+                out.append(nms_mod.purge_detections(
+                    rows, self.config.purge_threshold) if len(rows)
+                    else np.zeros((0, 10)))
+            span.update(rows_in=rows_in, kept=sum(len(p) for p in out))
+            return out
 
     def _finish_fused(self, stack: torch.Tensor,
-                      blocks: Optional[np.ndarray],
-                      estimate_attributes: bool) -> List[List[Detection]]:
-        """Host NMS + attribute heads + Detection assembly for a pulled
-        fused-cascade result block."""
-        if blocks is None:                       # n_real == 0 sentinel
-            return [[] for _ in range(int(stack.shape[0]))]
-        if blocks.dtype == np.uint16:            # wire_format="u16"
-            blocks = _unpack_wire(blocks, max(stack.shape[-2:]))
-        return self._assemble_batch(stack, [self._purge(b) for b in blocks],
-                                    estimate_attributes)
+                      fut: Optional[torch.Tensor],
+                      estimate_attributes: bool,
+                      request=None) -> List[List[Detection]]:
+        """Result pull, host NMS, attribute heads and Detection assembly of
+        a dispatched fused batch (``_dispatch_fused``'s pair)."""
+        B = int(stack.shape[0])
+        with annotate("pfa.finish", request=request, images=B):
+            if fut is None:                      # n_real == 0 sentinel
+                return [[] for _ in range(B)]
+            blocks = _pull(fut)
+            if blocks.dtype == np.uint16:        # wire_format="u16"
+                blocks = _unpack_wire(blocks, max(stack.shape[-2:]))
+            return self._assemble_batch(stack, self._purge(blocks),
+                                        estimate_attributes)
 
     def detect_stream(self, batches: Iterable[Sequence[np.ndarray]],
                       estimate_attributes: bool = True,
@@ -821,12 +879,21 @@ class FaceDetector:
 
         With ``config.stream_push_prefetch`` the stream runs in three
         stages over two helper threads: a producer (uint8 conversion and
-        the host-to-device copy), the caller's thread (cascade dispatch;
-        the only thread that launches the CUDA kernels) and a finisher
-        (result pull, NMS, attribute heads). All device work stays on the
-        default stream, so it executes in the order it was enqueued; the
-        copies and pulls release the interpreter lock, so the stages
-        overlap; order is kept because both queues are FIFO.
+        the host-to-device copy), the caller's thread (cascade dispatch)
+        and a finisher (result pull, NMS, attribute heads, assembly). The
+        finisher enqueues device work too: the heads' program of each
+        batch. All device work stays on the default stream, so it executes
+        in the order it was enqueued, and each of the finisher's two pulls
+        (the result block, the heads' output) waits for everything enqueued
+        before it, the cascades of later batches included: the overlap is
+        less than ``depth`` suggests. So does each host-to-device copy
+        (the producer's canvases, the dispatch's scale table and u16
+        constants, the heads' inputs): PyTorch synchronises the stream
+        after a copy made without ``non_blocking``, so a batch's dispatch
+        returns only once its own cascade has run. The copies and pulls
+        release the interpreter lock, so the stages overlap; order is kept
+        because both queues are FIFO. Each batch's spans carry its index
+        in the stream as their request (utils.profiling).
         """
         cfg = self.config
         depth = max(1, int(cfg.stream_depth if depth is None else depth))
@@ -841,17 +908,17 @@ class FaceDetector:
             q: deque = deque()
 
             def finish_oldest():
-                stack, fut = q.popleft()
-                return self._finish_fused(stack, _pull(fut),
-                                          estimate_attributes)
+                j, stack, fut = q.popleft()
+                return self._finish_fused(stack, fut, estimate_attributes,
+                                          request=j)
 
-            for images in batches:
+            for j, images in enumerate(batches):
                 if is_ragged(images):
                     while q:
                         yield finish_oldest()
                     yield self.detect_batch(images, estimate_attributes)
                     continue
-                q.append(self._dispatch_fused(images))
+                q.append((j, *self._dispatch_fused(images, request=j)))
                 if len(q) >= depth:
                     yield finish_oldest()
             while q:
@@ -866,13 +933,14 @@ class FaceDetector:
 
         def produce():
             try:
-                for images in batches:
+                for j, images in enumerate(batches):
                     if stop.is_set():       # the consumer abandoned us
                         return
                     stack = None
                     if not is_ragged(images):
-                        stack = self._to_canvas_batch(images)
-                    ready.put((images, stack))
+                        stack = self._to_canvas_batch(images, request=j)
+                    with annotate("pfa.stream.producer_wait", request=j):
+                        ready.put((j, images, stack))
             except BaseException as e:      # re-raised on the consumer
                 ready.put(e)
                 return
@@ -881,12 +949,14 @@ class FaceDetector:
         def finish():
             try:
                 while True:
-                    item = to_finish.get()
+                    with annotate("pfa.stream.finisher_wait"):
+                        item = to_finish.get()
                     if item is end:
                         return
-                    stack, fut = item
-                    done.put(self._finish_fused(stack, _pull(fut),
-                                                estimate_attributes))
+                    j, stack, fut = item
+                    done.put(self._finish_fused(stack, fut,
+                                                estimate_attributes,
+                                                request=j))
             except BaseException as e:      # re-raised on the consumer
                 done.put(e)
 
@@ -900,7 +970,8 @@ class FaceDetector:
 
         def drain_one():
             nonlocal in_flight
-            out = done.get()
+            with annotate("pfa.stream.wait_result"):
+                out = done.get()
             in_flight -= 1
             if isinstance(out, BaseException):
                 raise out
@@ -908,18 +979,20 @@ class FaceDetector:
 
         try:
             while True:
-                item = ready.get()
+                with annotate("pfa.stream.wait_input"):
+                    item = ready.get()
                 if item is end:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                images, stack = item
+                j, images, stack = item
                 if stack is None:           # ragged: flush + fall back
                     while in_flight:
                         yield drain_one()
                     yield self.detect_batch(images, estimate_attributes)
                     continue
-                to_finish.put(self._dispatch_fused(images, stack=stack))
+                to_finish.put((j, *self._dispatch_fused(
+                    images, stack=stack, request=j)))
                 in_flight += 1
                 if in_flight >= depth:
                     yield drain_one()
@@ -950,32 +1023,36 @@ class FaceDetector:
         counts = [len(p) for p in purged_per_image]
         if (estimate_attributes and self._wants_attributes()
                 and sum(counts) > 0):
-            all_rows = np.concatenate(
-                [_arg_rows(p, cfg) for p in purged_per_image if len(p)],
-                axis=0)
-            img_idx = np.repeat(np.arange(len(counts)), counts)
-            ages, stds, races, genders = \
-                heads_mod.estimate_age_race_gender_multi(
-                    stack, all_rows, img_idx, self.model, tta=cfg.arg_tta)
+            with annotate("pfa.heads", faces=sum(counts)):
+                all_rows = np.concatenate(
+                    [_arg_rows(p, cfg) for p in purged_per_image if len(p)],
+                    axis=0)
+                img_idx = np.repeat(np.arange(len(counts)), counts)
+                ages, stds, races, genders = \
+                    heads_mod.estimate_age_race_gender_multi(
+                        stack, all_rows, img_idx, self.model,
+                        tta=cfg.arg_tta)
 
         out: List[List[Detection]] = []
         offset = 0
-        for purged in purged_per_image:
-            dets = []
-            for j, r in enumerate(purged):
-                k = offset + j
-                el, er = _row_eyes(r, cfg)
-                dets.append(Detection(
-                    box=tuple(float(v) for v in r[0:4]), angle=float(r[4]),
-                    eye_left=el, eye_right=er,
-                    confidence=float(r[9]),
-                    age=None if ages is None else float(ages[k]),
-                    age_std=None if stds is None else float(stds[k]),
-                    race_value=None if races is None else float(races[k]),
-                    gender_value=None if genders is None
-                    else float(genders[k])))
-            offset += len(purged)
-            out.append(dets)
+        with annotate("pfa.assemble", detections=sum(counts)):
+            for purged in purged_per_image:
+                dets = []
+                for j, r in enumerate(purged):
+                    k = offset + j
+                    el, er = _row_eyes(r, cfg)
+                    dets.append(Detection(
+                        box=tuple(float(v) for v in r[0:4]),
+                        angle=float(r[4]), eye_left=el, eye_right=er,
+                        confidence=float(r[9]),
+                        age=None if ages is None else float(ages[k]),
+                        age_std=None if stds is None else float(stds[k]),
+                        race_value=(None if races is None
+                                    else float(races[k])),
+                        gender_value=(None if genders is None
+                                      else float(genders[k]))))
+                offset += len(purged)
+                out.append(dets)
         return out
 
     def _update_tracking(self, purged: np.ndarray) -> None:

@@ -18,6 +18,7 @@ from pyfaceanalysis_torch.models.network import HierarchicalNetwork
 from pyfaceanalysis_torch.ops.contrast import contrast_enhance_patches
 from pyfaceanalysis_torch.ops.gaussian import GaussianRegressor
 from pyfaceanalysis_torch.ops.patches import extract_patches_rotate
+from pyfaceanalysis_torch.utils.profiling import annotate
 
 
 def _eye_levels(scales: torch.Tensor, box_w: torch.Tensor
@@ -80,8 +81,11 @@ def localize_eyes(net: HierarchicalNetwork, dim_x: int, dim_y: int,
         patches = level_sampler(pyramid, pyr_scales, levels, eye_boxes,
                                 angles, patch_hw, method="nearest")
         # Rare: a box wider than the coarsest level's budget is re-sampled
-        # through the canvas gather. The test reads one flag to the host.
-        if bool(no_cover.any()):
+        # through the canvas gather. The test reads one flag to the host,
+        # which waits for the work enqueued before it.
+        with annotate("pfa.pull"):
+            uncovered = bool(no_cover.any())
+        if uncovered:
             patches = torch.where(
                 no_cover[:, None, None],
                 extract_patches_rotate(image, eye_boxes, angles, patch_hw,

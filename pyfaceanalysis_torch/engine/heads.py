@@ -24,6 +24,7 @@ import torch
 from pyfaceanalysis_torch import normalization
 from pyfaceanalysis_torch.ops.contrast import contrast_enhance_patches
 from pyfaceanalysis_torch.ops.patches import extract_centered_patch
+from pyfaceanalysis_torch.utils.profiling import annotate
 
 # Z-frame (age/race/gender) constants, from estimate_age_race_gender
 # (face_analysis.py:1180-1199): out (256, 260), sampling 1.14 * 160/96,
@@ -232,7 +233,8 @@ def estimate_age_race_gender_multi(images: torch.Tensor, rows: np.ndarray,
         torch.as_tensor(sfs, device=dev),
         torch.as_tensor(np.asarray(img_idx, np.int64), device=dev),
         torch.as_tensor(_tta_offsets(tta), device=dev))
-    out = out.cpu().numpy()                     # ONE (4, N) pull
+    with annotate("pfa.pull"):
+        out = out.cpu().numpy()                 # ONE (4, N) pull
     return out[0], out[1], out[2], out[3]
 
 
