@@ -1072,14 +1072,14 @@ def mesh_phase(torch, model, det, scenes, reset_counts, counts, tmp, warm,
     t0 = time.perf_counter()
     img = scenes[0]
     im_h, im_w = img.shape
-    state, _, pyr = det._grid_state(im_w, im_h)
+    state, _, pyr, pyr_scales = det._grid_state(im_w, im_h)
     canvas = det._to_canvas(img)
     geom = model.spec.face_geom
     args = (model.plan, model.det_nets, geom, det.config,
             (geom.subimage_height, geom.subimage_width), canvas,
             model.det_clfs, state)
     kw = dict(pyramid=build_pyramid(canvas, pyr.scales, pyr.level_hw),
-              crops=pyr.crops, pyr_scales=det._scales(pyr))
+              crops=pyr.crops, pyr_scales=pyr_scales)
     reset_counts()
     want = cascade_mod.run_cascade(*args, **kw)
     launches_plain = counts()
@@ -1368,12 +1368,11 @@ def main() -> None:
     if level_samplers(det.config, dev) is None:
         fail("the default config does not route through the kernels")
     im_h, im_w = img.shape
-    state, n_real, pyr_info = det._grid_state(im_w, im_h)
+    state, n_real, pyr_info, scales = det._grid_state(im_w, im_h)
     if pyr_info is None:
         fail("the default grid has no pyramid path")
     canvas = det._to_canvas(img)
     pyramid = build_pyramid(canvas, pyr_info.scales, pyr_info.level_hw)
-    scales = det._scales(pyr_info)
     crops = pyr_info.crops
     L, lh, lw = pyramid.shape
     print(f"scene {im_w}x{im_h} seed {args.seed}: {n_real} windows in a "
@@ -1427,10 +1426,10 @@ def main() -> None:
     # along the level axis, crop levels folded (img * L + level), scales
     # tiled. Windows moved within the gates as above, every row at its own
     # folded level; eye boxes with a per-box image index.
-    state_b, n_real_b, pyr_b = det._grid_state(im_w, im_h, batch=B)
+    state_b, n_real_b, pyr_b, scales_b = det._grid_state(im_w, im_h,
+                                                         batch=B)
     stack = det._to_canvas_batch(scenes)
     pyramid_b = build_pyramid_batch(stack, pyr_b.scales, pyr_b.level_hw)
-    scales_b = det._scales(pyr_b, tile=B)
     crops_b = pyr_b.crops
     rows_b = crops_b.shape[0]
     if not torch.equal(pyramid_b[:L], pyramid):

@@ -21,6 +21,7 @@ first device over all survivors.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import queue
 import threading
@@ -39,6 +40,7 @@ from pyfaceanalysis_torch.config import (
 )
 from pyfaceanalysis_torch.engine import cascade as cascade_mod
 from pyfaceanalysis_torch.engine import eyes as eyes_mod
+from pyfaceanalysis_torch.engine import graphs
 from pyfaceanalysis_torch.engine import heads as heads_mod
 from pyfaceanalysis_torch.engine import nms as nms_mod
 from pyfaceanalysis_torch.io import artifacts
@@ -222,12 +224,20 @@ def _check_wire_range(cfg: DetectorConfig, side: int) -> None:
             f"wire_format='f32' (or enable image prescaling)")
 
 
+@functools.lru_cache(maxsize=64)
+def _wire_constants(ncols: int, canvas_side: int, device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(offset, scale) of _wire_affine on ``device``, copied there once per
+    (ncols, canvas side, device)."""
+    off, scale = _wire_affine(ncols, _wire_coord_scale(canvas_side))
+    return (torch.as_tensor(off, device=device),
+            torch.as_tensor(scale, device=device))
+
+
 def _pack_wire(block: torch.Tensor, canvas_side: int) -> torch.Tensor:
     """Device-side u16 pack of a (..., ncols) float32 block: round half to
     even, clip to [0, 65535] (see _wire_affine)."""
-    off, scale = _wire_affine(block.shape[-1], _wire_coord_scale(canvas_side))
-    off = torch.as_tensor(off, device=block.device)
-    scale = torch.as_tensor(scale, device=block.device)
+    off, scale = _wire_constants(block.shape[-1], canvas_side, block.device)
     return torch.clamp(torch.round((block + off) * scale), 0.0,
                        65535.0).to(torch.uint16)
 
@@ -557,39 +567,47 @@ class FaceDetector:
         # config (tracking grids depend on the last detection and bypass
         # this).
         self._grid_cache: dict = {}
+        # The dispatches' device work, captured per shape (engine.graphs).
+        self._graphs = graphs.GraphCache()
 
     # -- image preparation ---------------------------------------------------
 
     def _grid_state(self, im_w: int, im_h: int, batch: int = 0,
                     track: Optional[Tuple] = None):
-        """(state, n_real, pyr) of the window grid, cached for a
-        non-tracking grid.
+        """(state, n_real, pyr, scales) of the window grid, cached for a
+        non-tracking grid; ``scales`` is the pyramid's scale ladder on the
+        device, tiled ``batch`` times (None without a pyramid).
 
         ``batch=0`` -> make_grid_state; ``batch=B`` -> the fused
         make_batched_grid_state; ``track`` -> the tracking grid around the
         last detection, built anew. The cascade never writes through a
         state, so reuse across calls is safe."""
         with annotate("pfa.grid") as span:
-            geom = self.model.spec.face_geom
             if track is not None:
-                hit = cascade_mod.make_grid_state(
-                    im_w, im_h, geom, self.config, track, device=self.device)
+                hit = self._make_grid(im_w, im_h, 0, track)
             else:
                 key = (im_w, im_h, batch)
                 hit = self._grid_cache.get(key)
                 if hit is None:
-                    if batch:
-                        hit = cascade_mod.make_batched_grid_state(
-                            im_w, im_h, geom, self.config, batch,
-                            device=self.device)
-                    else:
-                        hit = cascade_mod.make_grid_state(
-                            im_w, im_h, geom, self.config,
-                            device=self.device)
-                    self._grid_cache[key] = hit
+                    hit = self._grid_cache[key] = self._make_grid(
+                        im_w, im_h, batch)
             span.update(rows=int(hit[0].mask.shape[0]),
                         real=hit[1] * max(batch, 1))
             return hit
+
+    def _make_grid(self, im_w: int, im_h: int, batch: int,
+                   track: Optional[Tuple] = None):
+        geom = self.model.spec.face_geom
+        if batch:
+            state, n_real, pyr = cascade_mod.make_batched_grid_state(
+                im_w, im_h, geom, self.config, batch, device=self.device)
+        else:
+            state, n_real, pyr = cascade_mod.make_grid_state(
+                im_w, im_h, geom, self.config, track, device=self.device)
+        scales = None if pyr is None else torch.tensor(
+            pyr.scales * max(batch, 1), dtype=torch.float32,
+            device=self.device)
+        return state, n_real, pyr, scales
 
     def _fit_canvas(self, h: int, w: int) -> Tuple[int, int]:
         """The canvas for (h, w) inputs. Inputs larger than the canvas
@@ -628,9 +646,27 @@ class FaceDetector:
         return (pyr is not None and self.config.interpolation_formats[
             self.model.plan[0].serial] == "nearest")
 
-    def _scales(self, pyr, tile: int = 1) -> torch.Tensor:
-        return torch.tensor(pyr.scales * tile, dtype=torch.float32,
-                            device=self.device)
+    def _graphable(self, pyr, track=None, collect_trace: bool = False
+                   ) -> bool:
+        """Whether a dispatch's device work goes through the graph cache:
+        on a card, unsharded (a mesh's rungs pull indices to the host), on
+        a cached grid (a tracking grid changes every frame), without the
+        per-stage trace, and on the pyramid path."""
+        return (self.device.type == "cuda" and self._mesh is None
+                and track is None and not collect_trace
+                and self._use_pyramid(pyr))
+
+    def _device_work(self, work: graphs.Work, canvas: torch.Tensor,
+                     grid_key: Tuple[int, int, int], graphable: bool
+                     ) -> Tuple[torch.Tensor, bool]:
+        """``work(canvas)``, eagerly or through the graph of its shapes
+        (engine.graphs); returns the block and whether a graph replayed."""
+        if not graphable:
+            return work(canvas), False
+        ncols = 15 if self.config.eye_iters > 1 else 11
+        with torch.cuda.device(self.device):
+            return self._graphs.run((tuple(canvas.shape), grid_key, ncols),
+                                    canvas, work)
 
     def _apply_mesh(self, state, crops, image, pyramid, scales
                     ) -> List[cascade_mod.Shard]:
@@ -655,9 +691,8 @@ class FaceDetector:
         this frame."""
         with annotate("pfa.detect"):
             device_image = self._to_canvas(image)
-            with annotate("pfa.dispatch"):
-                block = self._dispatch_one(device_image, image.shape,
-                                           collect_trace)
+            block = self._dispatch_one(device_image, image.shape,
+                                       collect_trace)
             if block is None:
                 return []
             with annotate("pfa.finish", images=1):
@@ -668,41 +703,54 @@ class FaceDetector:
                       hw: Tuple[int, int], collect_trace: bool
                       ) -> Optional[torch.Tensor]:
         """Grid, pyramid and the enqueued (k_out, 11) block of one image
-        (None when the grid is empty)."""
+        (None when the grid is empty), in a ``pfa.dispatch`` span."""
         cfg = self.config
         model = self.model
         im_h, im_w = hw
         geom = model.spec.face_geom
-        track = self.tracked_face if (cfg.track_single_face and
-                                      self.face_has_been_found) else None
-        state, n_real, pyr = self._grid_state(im_w, im_h, track=track)
-        self.windows_scanned = n_real
-        if n_real == 0:
-            return None
-        pyramid = crops = scales_arr = None
-        if self._use_pyramid(pyr):
-            with annotate("pfa.pyramid"):
-                pyramid = build_pyramid(device_image, pyr.scales,
-                                        pyr.level_hw)
-            crops = pyr.crops
-            scales_arr = self._scales(pyr)
+        with annotate("pfa.dispatch", graph=0) as span:
+            track = self.tracked_face if (cfg.track_single_face and
+                                          self.face_has_been_found) else None
+            state, n_real, pyr, scales = self._grid_state(im_w, im_h,
+                                                          track=track)
+            self.windows_scanned = n_real
+            if n_real == 0:
+                return None
+            self.last_trace = None
+            use_pyr = self._use_pyramid(pyr)
 
-        self.last_trace = None
-        if collect_trace:
-            # Per-stage attribution only (compaction off); the detections
-            # always come from the production run below.
-            _, trace = cascade_mod.run_cascade(
-                model.plan, model.det_nets, geom, cfg,
-                (geom.subimage_height, geom.subimage_width),
-                device_image, model.det_clfs, state, pyramid=pyramid,
-                crops=crops, pyr_scales=scales_arr, collect_trace=True)
-            with annotate("pfa.pull"):
-                self.last_trace = [tuple(t.cpu().numpy() for t in snap)
-                                   for snap in trace]
-        shards = (None if self._mesh is None else self._apply_mesh(
-            state, crops, device_image, pyramid, scales_arr))
-        return _detect_core(model, cfg, cfg.max_detections, device_image,
-                            state, pyramid, crops, scales_arr, shards)
+            def work(image: torch.Tensor) -> torch.Tensor:
+                pyramid = crops = scales_arr = None
+                if use_pyr:
+                    with annotate("pfa.pyramid"):
+                        pyramid = build_pyramid(image, pyr.scales,
+                                                pyr.level_hw)
+                    crops, scales_arr = pyr.crops, scales
+                if collect_trace:
+                    # Per-stage attribution only (compaction off); the
+                    # detections always come from the production run
+                    # below.
+                    _, trace = cascade_mod.run_cascade(
+                        model.plan, model.det_nets, geom, cfg,
+                        (geom.subimage_height, geom.subimage_width),
+                        image, model.det_clfs, state, pyramid=pyramid,
+                        crops=crops, pyr_scales=scales_arr,
+                        collect_trace=True)
+                    with annotate("pfa.pull"):
+                        self.last_trace = [
+                            tuple(t.cpu().numpy() for t in snap)
+                            for snap in trace]
+                shards = (None if self._mesh is None else self._apply_mesh(
+                    state, crops, image, pyramid, scales_arr))
+                return _detect_core(model, cfg, cfg.max_detections, image,
+                                    state, pyramid, crops, scales_arr,
+                                    shards)
+
+            block, replayed = self._device_work(
+                work, device_image, (im_w, im_h, 0),
+                self._graphable(pyr, track, collect_trace))
+            span.update(graph=int(replayed))
+            return block
 
     def _finish_one(self, device_image: torch.Tensor, block: torch.Tensor,
                     estimate_attributes: bool) -> List[Detection]:
@@ -763,27 +811,14 @@ class FaceDetector:
             return self._finish_fused(stack, fut, estimate_attributes)
 
         # Async mode: enqueue one cascade per image, pull afterwards.
-        model = self.model
-        im_h, im_w = shape0
-        state, n_real, pyr = self._grid_state(im_w, im_h)
-        self.windows_scanned = n_real
-        if n_real == 0:
-            return [[] for _ in images]
-        use_pyr = self._use_pyramid(pyr)
-        scales_arr = self._scales(pyr) if use_pyr else None
         device_images, futures = [], []
         for im in images:
             device_image = self._to_canvas(im)
+            block = self._dispatch_one(device_image, shape0, False)
+            if block is None:                    # the same empty grid
+                return [[] for _ in images]
             device_images.append(device_image)
-            pyramid = crops = None
-            if use_pyr:
-                with annotate("pfa.pyramid"):
-                    pyramid = build_pyramid(device_image, pyr.scales,
-                                            pyr.level_hw)
-                crops = pyr.crops
-            futures.append(_detect_core(
-                model, cfg, cfg.max_detections, device_image, state,
-                pyramid, crops, scales_arr))
+            futures.append(block)
         purged_per_image = self._purge([_pull(fut) for fut in futures])
         return self._assemble_batch(torch.stack(device_images),
                                     purged_per_image, estimate_attributes)
@@ -806,28 +841,35 @@ class FaceDetector:
         cfg, model = self.config, self.model
         im_h, im_w = images[0].shape
         B = len(images)
-        with annotate("pfa.dispatch", request=request):
-            state_b, n_real, pyr_b = self._grid_state(im_w, im_h, batch=B)
+        with annotate("pfa.dispatch", request=request, graph=0) as span:
+            state_b, n_real, pyr_b, scales_b = self._grid_state(
+                im_w, im_h, batch=B)
             self.windows_scanned = n_real
             if stack is None:
                 stack = self._to_canvas_batch(images)
             if n_real == 0:
                 # Image below the scale envelope: nothing to scan.
                 return stack, None
-            pyramid_b = crops_b = scales_b = None
-            n_levels = 0
-            if self._use_pyramid(pyr_b):
-                n_levels = len(pyr_b.scales)
-                with annotate("pfa.pyramid"):
-                    pyramid_b = build_pyramid_batch(stack, pyr_b.scales,
-                                                    pyr_b.level_hw)
-                crops_b = pyr_b.crops
-                scales_b = self._scales(pyr_b, tile=B)
-            shards = (None if self._mesh is None else self._apply_mesh(
-                state_b, crops_b, stack, pyramid_b, scales_b))
-            fut = _detect_core_batch(
-                model, cfg, cfg.max_detections, B, n_real, n_levels, stack,
-                state_b, pyramid_b, crops_b, scales_b, shards)
+            use_pyr = self._use_pyramid(pyr_b)
+            n_levels = len(pyr_b.scales) if use_pyr else 0
+
+            def work(canvases: torch.Tensor) -> torch.Tensor:
+                pyramid_b = crops_b = scales_arr = None
+                if use_pyr:
+                    with annotate("pfa.pyramid"):
+                        pyramid_b = build_pyramid_batch(
+                            canvases, pyr_b.scales, pyr_b.level_hw)
+                    crops_b, scales_arr = pyr_b.crops, scales_b
+                shards = (None if self._mesh is None else self._apply_mesh(
+                    state_b, crops_b, canvases, pyramid_b, scales_arr))
+                return _detect_core_batch(
+                    model, cfg, cfg.max_detections, B, n_real, n_levels,
+                    canvases, state_b, pyramid_b, crops_b, scales_arr,
+                    shards)
+
+            fut, replayed = self._device_work(work, stack, (im_w, im_h, B),
+                                              self._graphable(pyr_b))
+            span.update(graph=int(replayed))
             return stack, fut
 
     def _purge(self, blocks: Iterable[np.ndarray]) -> List[np.ndarray]:
@@ -886,14 +928,19 @@ class FaceDetector:
         in the order it was enqueued, and each of the finisher's two pulls
         (the result block, the heads' output) waits for everything enqueued
         before it, the cascades of later batches included: the overlap is
-        less than ``depth`` suggests. So does each host-to-device copy
-        (the producer's canvases, the dispatch's scale table and u16
-        constants, the heads' inputs): PyTorch synchronises the stream
-        after a copy made without ``non_blocking``, so a batch's dispatch
-        returns only once its own cascade has run. The copies and pulls
-        release the interpreter lock, so the stages overlap; order is kept
-        because both queues are FIFO. Each batch's spans carry its index
-        in the stream as their request (utils.profiling).
+        less than ``depth`` suggests. So does each host-to-device copy of
+        the producer (the canvases) and of the finisher (the heads'
+        inputs): PyTorch synchronises the stream after a copy made without
+        ``non_blocking``. The dispatch makes no such copy and reads nothing
+        back (its scale table and u16 constants stay on the device), so
+        the caller enqueues batch i+1 while batch i's cascade runs. From a
+        batch shape's second dispatch on, the dispatch is one CUDA graph
+        (engine.graphs): captured on that dispatch, replayed after, and a
+        replayed dispatch makes no pyramid, stage, rung or eye spans. The
+        copies and pulls release the interpreter lock, so the stages
+        overlap; order is kept because both queues are FIFO. Each batch's
+        spans carry its index in the stream as their request
+        (utils.profiling).
         """
         cfg = self.config
         depth = max(1, int(cfg.stream_depth if depth is None else depth))

@@ -18,7 +18,6 @@ from pyfaceanalysis_torch.models.network import HierarchicalNetwork
 from pyfaceanalysis_torch.ops.contrast import contrast_enhance_patches
 from pyfaceanalysis_torch.ops.gaussian import GaussianRegressor
 from pyfaceanalysis_torch.ops.patches import extract_patches_rotate
-from pyfaceanalysis_torch.utils.profiling import annotate
 
 
 def _eye_levels(scales: torch.Tensor, box_w: torch.Tensor
@@ -29,8 +28,8 @@ def _eye_levels(scales: torch.Tensor, box_w: torch.Tensor
     decides which level, and so which texels, an eye patch samples.
 
     Returns ``(levels, no_cover)``; ``no_cover`` marks boxes too wide for
-    even the coarsest level, which the caller re-samples through the canvas
-    gather (as the JAX package does)."""
+    even the coarsest level, which :func:`_eye_patches` takes from the
+    canvas gather (as the JAX package does)."""
     need = box_w / 80.0
     cand = torch.where(scales[None, :] >= need[:, None], scales[None, :],
                        torch.full_like(scales[None, :], float("inf")))
@@ -38,6 +37,35 @@ def _eye_levels(scales: torch.Tensor, box_w: torch.Tensor
     no_cover = torch.isinf(cand.min(dim=1).values)
     levels = torch.where(no_cover, torch.argmax(scales), idx)
     return levels.to(torch.int32), no_cover
+
+
+def _eye_patches(image: torch.Tensor, eye_boxes: torch.Tensor,
+                 angles: torch.Tensor, patch_hw: Tuple[int, int],
+                 pyramid: Optional[torch.Tensor] = None,
+                 pyr_scales: Optional[torch.Tensor] = None,
+                 level_sampler: Optional[Callable] = None,
+                 image_idx: Optional[torch.Tensor] = None,
+                 n_base_levels: int = 0) -> torch.Tensor:
+    """The (B, h, w) NEAREST eye patches of :func:`localize_eyes`.
+
+    From the pyramid when it is given, except that a box wider than the
+    coarsest level's budget takes its patch from the canvas gather. The
+    canvas patches are made for every box and selected per box, so that
+    no flag goes to the host (which would wait for the device); the
+    result is the same."""
+    canvas = extract_patches_rotate(image, eye_boxes, angles, patch_hw,
+                                    method="nearest", image_idx=image_idx)
+    if pyramid is None or level_sampler is None:
+        return canvas
+    bw = torch.abs(eye_boxes[:, 2] - eye_boxes[:, 0]) + 1.0
+    if image_idx is not None and n_base_levels > 0:
+        levels, no_cover = _eye_levels(pyr_scales[:n_base_levels], bw)
+        levels = levels + image_idx.to(torch.int32) * n_base_levels
+    else:
+        levels, no_cover = _eye_levels(pyr_scales, bw)
+    patches = level_sampler(pyramid, pyr_scales, levels, eye_boxes, angles,
+                            patch_hw, method="nearest")
+    return torch.where(no_cover[:, None, None], canvas, patches)
 
 
 def localize_eyes(net: HierarchicalNetwork, dim_x: int, dim_y: int,
@@ -71,30 +99,9 @@ def localize_eyes(net: HierarchicalNetwork, dim_x: int, dim_y: int,
     """
     h, w = patch_hw
     # NEAREST, like every reference extraction.
-    if pyramid is not None and level_sampler is not None:
-        bw = torch.abs(eye_boxes[:, 2] - eye_boxes[:, 0]) + 1.0
-        if image_idx is not None and n_base_levels > 0:
-            levels, no_cover = _eye_levels(pyr_scales[:n_base_levels], bw)
-            levels = levels + image_idx.to(torch.int32) * n_base_levels
-        else:
-            levels, no_cover = _eye_levels(pyr_scales, bw)
-        patches = level_sampler(pyramid, pyr_scales, levels, eye_boxes,
-                                angles, patch_hw, method="nearest")
-        # Rare: a box wider than the coarsest level's budget is re-sampled
-        # through the canvas gather. The test reads one flag to the host,
-        # which waits for the work enqueued before it.
-        with annotate("pfa.pull"):
-            uncovered = bool(no_cover.any())
-        if uncovered:
-            patches = torch.where(
-                no_cover[:, None, None],
-                extract_patches_rotate(image, eye_boxes, angles, patch_hw,
-                                       method="nearest",
-                                       image_idx=image_idx), patches)
-    else:
-        patches = extract_patches_rotate(image, eye_boxes, angles, patch_hw,
-                                         method="nearest",
-                                         image_idx=image_idx)
+    patches = _eye_patches(image, eye_boxes, angles, patch_hw, pyramid,
+                           pyr_scales, level_sampler, image_idx,
+                           n_base_levels)
     flat = patches.reshape(patches.shape[0], -1)
     flat = contrast_enhance_patches(flat, obj_avg=0.11, obj_std=0.15)
     sl = net(flat)

@@ -34,7 +34,10 @@ The serving path's spans (``engine/detector.py``, ``engine/cascade.py``,
 
 - ``pfa.detect``: one ``FaceDetector.detect`` call;
 - ``pfa.upload``: a canvas (batch) to the device;
-- ``pfa.dispatch``: from the grid to the enqueued result block;
+- ``pfa.dispatch`` [graph]: from the grid to the enqueued result block;
+  ``graph`` is 1 when the block came from a replay of the dispatch's
+  CUDA graph (``engine/graphs.py``), else 0;
+- ``pfa.graph.capture``: the capture of a dispatch's CUDA graph;
 - ``pfa.grid`` [rows, real]: the window grid, cached or tracking;
 - ``pfa.pyramid``: the scale pyramid;
 - ``pfa.stage.NN.<Kind>`` [rows]: cascade stage NN (00-16) of its kind;
@@ -55,7 +58,10 @@ The serving path's spans (``engine/detector.py``, ``engine/cascade.py``,
 
 ``rows`` are bucket rows (padding included), ``real`` the grid's windows
 over all images of the grid; a stream batch's spans carry its index as
-their request.
+their request. The pyramid, stage, rung and eye spans are made while the
+host enqueues that work: eagerly, or once while a graph is captured. A
+replayed dispatch holds only ``pfa.grid`` (and ``pfa.upload`` where it
+copies its batch itself).
 """
 
 from __future__ import annotations

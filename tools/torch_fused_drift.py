@@ -61,14 +61,14 @@ def main() -> None:
         det = FaceDetector(model, DetectorConfig(matmul_dtype=dtype),
                            device=args.device)
         cfg = det.config
-        state, n, pyr = det._grid_state(im_w, im_h)
-        state_b, _, pyr_b = det._grid_state(im_w, im_h, batch=B)
+        state, n, pyr, scales = det._grid_state(im_w, im_h)
+        state_b, _, pyr_b, scales_b = det._grid_state(im_w, im_h, batch=B)
         stack = det._to_canvas_batch(scenes)
         _, fused = cascade.run_cascade(
             model.plan, model.det_nets, geom, cfg, hw, stack, model.det_clfs,
             state_b, pyramid=build_pyramid_batch(stack, pyr_b.scales,
                                                  pyr_b.level_hw),
-            crops=pyr_b.crops, pyr_scales=det._scales(pyr_b, tile=B),
+            crops=pyr_b.crops, pyr_scales=scales_b,
             collect_trace=True, n_images=B, n_per_image=n)
         singles = []
         for i in range(B):
@@ -76,7 +76,7 @@ def main() -> None:
                 model.plan, model.det_nets, geom, cfg, hw, stack[i],
                 model.det_clfs, state, pyramid=build_pyramid(
                     stack[i], pyr.scales, pyr.level_hw),
-                crops=pyr.crops, pyr_scales=det._scales(pyr),
+                crops=pyr.crops, pyr_scales=scales,
                 collect_trace=True)
             singles.append(trace)
         print(f"matmul_dtype={dtype}: {B} images x {n} windows; per stage: "
