@@ -284,15 +284,17 @@ def _arg_rows(rows: np.ndarray, cfg) -> np.ndarray:
     return out
 
 
-def _row_eyes(r, cfg=None) -> Tuple[Tuple[float, float], Tuple[float, float]]:
-    """REPORTED eye centres of a purged row: the refined pass when present
-    (cols 10:14), else the pass-1 positions (cols 5:9);
-    ``config.eye_report == "pass1"`` reports pass 1 regardless."""
+def _row_eyes(r: List[float], cfg=None
+              ) -> Tuple[Tuple[float, float], Tuple[float, float]]:
+    """REPORTED eye centres of a purged row (a ``.tolist()`` row of Python
+    floats): the refined pass when present (cols 10:14), else the pass-1
+    positions (cols 5:9); ``config.eye_report == "pass1"`` reports pass 1
+    regardless."""
     report_refined = (len(r) >= 14 and
                       (cfg is None or
                        getattr(cfg, "eye_report", "refined") == "refined"))
     e = r[10:14] if report_refined else r[5:9]
-    return (float(e[0]), float(e[1])), (float(e[2]), float(e[3]))
+    return (e[0], e[1]), (e[2], e[3])
 
 
 def _detect_core(model: DetectionModel, cfg: DetectorConfig, k_out: int,
@@ -1083,21 +1085,20 @@ class FaceDetector:
         out: List[List[Detection]] = []
         offset = 0
         with annotate("pfa.assemble", detections=sum(counts)):
+            # One .tolist() an array: the same Python floats as float() of
+            # each element.
+            ages, stds, races, genders = (
+                [None] * sum(counts) if a is None else a.tolist()
+                for a in (ages, stds, races, genders))
             for purged in purged_per_image:
                 dets = []
-                for j, r in enumerate(purged):
-                    k = offset + j
+                for k, r in enumerate(purged.tolist(), offset):
                     el, er = _row_eyes(r, cfg)
                     dets.append(Detection(
-                        box=tuple(float(v) for v in r[0:4]),
-                        angle=float(r[4]), eye_left=el, eye_right=er,
-                        confidence=float(r[9]),
-                        age=None if ages is None else float(ages[k]),
-                        age_std=None if stds is None else float(stds[k]),
-                        race_value=(None if races is None
-                                    else float(races[k])),
-                        gender_value=(None if genders is None
-                                      else float(genders[k]))))
+                        box=tuple(r[0:4]), angle=r[4], eye_left=el,
+                        eye_right=er, confidence=r[9], age=ages[k],
+                        age_std=stds[k], race_value=races[k],
+                        gender_value=genders[k]))
                 offset += len(purged)
                 out.append(dets)
         return out

@@ -188,19 +188,13 @@ def _arg_forward(net, dims: Tuple[int, int, int], images: torch.Tensor,
 
 def _frame_arrays(rows: np.ndarray):
     """Z-frame (centers (N, 2), angles (N,), sfs (N,)) float32 arrays from
-    the eye columns 5:9 of detection rows (host float64 arithmetic)."""
-    centers, angles, sfs = [], [], []
-    for row in rows:
-        coords = [row[5], row[6], row[7], row[8], 0.0, 0.0]
-        fp = normalization.frame_params(
-            coords, normalization_method="eyes_inferred-mouth_areaZ",
-            centering_mode="mid_eyes_inferred-mouth",
-            rotation_mode="EyeLineRotation", out_size=(Z_SIZE[1], Z_SIZE[0]))
-        centers.append([fp.center_x, fp.center_y])
-        angles.append(fp.angle_deg)
-        sfs.append(fp.sf)
-    return (np.asarray(centers, np.float32), np.asarray(angles, np.float32),
-            np.asarray(sfs, np.float32))
+    the eye columns 5:9 of detection rows (host float64 arithmetic, all
+    rows at once; each value bit-equal to ``normalization.frame_params``
+    of its row)."""
+    cx, cy, angles, sfs = normalization.inferred_mouth_z_frames(
+        np.asarray(rows)[:, 5:9])
+    return (np.stack([cx, cy], axis=1).astype(np.float32),
+            angles.astype(np.float32), sfs.astype(np.float32))
 
 
 def estimate_age_race_gender_multi(images: torch.Tensor, rows: np.ndarray,

@@ -117,6 +117,31 @@ def frame_params(coords, normalization_method: str = "eyes_mouth_area",
     return FrameParams(cx, cy, angle, float(sf), mirror)
 
 
+def inferred_mouth_z_frames(eyes: np.ndarray
+                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                       np.ndarray]:
+    """``frame_params`` of many faces at once, for the one combination the
+    attribute heads use: "eyes_inferred-mouth_areaZ",
+    "mid_eyes_inferred-mouth", "EyeLineRotation".
+
+    eyes: (N, 4) [elx, ely, erx, ery]. Returns float64 (N,) arrays (cx, cy,
+    angle_deg, sf), each element bit-equal to the per-face call: the same
+    float64 operations in the same order."""
+    eyes = np.asarray(eyes, np.float64)
+    elx, ely, erx, ery = eyes[:, 0], eyes[:, 1], eyes[:, 2], eyes[:, 3]
+    eyes_mx = (elx + erx) / 2.0
+    eyes_my = (ely + ery) / 2.0
+    dist_eyes = np.hypot(erx - elx, ery - ely)
+    angle = np.degrees(np.arctan2(ery - ely, erx - elx))
+    r = CANONICAL_TRIANGLE_HEIGHT / CANONICAL_DIST_EYES
+    imx = eyes_mx - r * (ery - ely)
+    imy = eyes_my + r * (erx - elx)
+    height_inf = np.hypot(eyes_mx - imx, eyes_my - imy)
+    area_inf = dist_eyes * height_inf / 2.0
+    sf = np.sqrt(area_inf / DESIRED_AREA) / 2.0
+    return (eyes_mx + imx) / 2.0, (eyes_my + imy) / 2.0, angle, sf
+
+
 def sample_frame(image: torch.Tensor, fp: FrameParams,
                  out_size: Tuple[int, int], background: str = "zero",
                  generator: Optional[torch.Generator] = None

@@ -15,6 +15,8 @@ trace:
   or ``program_counter`` in ``BENCHMARK.json``), through their readers;
 - ``spans_per_request``: spans that lie in the window, by name, per
   ``detect`` call or per stream batch;
+- ``span_ms_per_image``: the summed duration of those spans, by name, per
+  image (ms; nested spans count in each of their names);
 - ``coverage``: in a single cell the share of each ``pfa.detect`` that its
   ``pfa.upload``, ``pfa.dispatch`` and ``pfa.finish`` cover (least,
   median); in a stream cell the share of the window that each thread's
@@ -212,6 +214,12 @@ def report(workload: str, seed: int) -> dict:
         k: round(v / max(requests, 1), 3) for k, v in sorted(names.items())}
     out["spans_per_request_total"] = round(len(inside) / max(requests, 1),
                                            3)
+    ms = defaultdict(int)
+    for s in inside:
+        ms[s.name] += s.end_ns - s.start_ns
+    out["span_ms_per_image"] = {
+        k: round(v / 1e6 / max(ctx.images, 1), 4) for k, v in sorted(
+            ms.items())}
     window = tr.window
     idle = T._gaps(T._union(tr.device, window), window)
     idle_ns = sum(b - a for a, b in idle)
