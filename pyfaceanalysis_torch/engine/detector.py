@@ -569,8 +569,12 @@ class FaceDetector:
         # config (tracking grids depend on the last detection and bypass
         # this).
         self._grid_cache: dict = {}
-        # The dispatches' device work, captured per shape (engine.graphs).
+        # The dispatches' device work, captured per shape (engine.graphs),
+        # and on a card the heads', per stack shape and face bucket
+        # (engine.heads; the CPU runs them eagerly).
         self._graphs = graphs.GraphCache()
+        self._head_graphs = (graphs.GraphCache()
+                             if self.device.type == "cuda" else None)
 
     # -- image preparation ---------------------------------------------------
 
@@ -931,14 +935,18 @@ class FaceDetector:
         (the result block, the heads' output) waits for everything enqueued
         before it, the cascades of later batches included: the overlap is
         less than ``depth`` suggests. So does each host-to-device copy of
-        the producer (the canvases) and of the finisher (the heads'
-        inputs): PyTorch synchronises the stream after a copy made without
-        ``non_blocking``. The dispatch makes no such copy and reads nothing
-        back (its scale table and u16 constants stay on the device), so
-        the caller enqueues batch i+1 while batch i's cascade runs. From a
-        batch shape's second dispatch on, the dispatch is one CUDA graph
-        (engine.graphs): captured on that dispatch, replayed after, and a
-        replayed dispatch makes no pyramid, stage, rung or eye spans. The
+        the producer (the canvases): PyTorch synchronises the stream after
+        a copy made without ``non_blocking``. The finisher's one copy, the
+        heads' face table, comes from pinned memory without blocking, so
+        the finisher enqueues it and the heads' program behind the batches
+        in flight and waits only in the heads' pull. The dispatch makes no
+        host-to-device copy and reads nothing back (its scale table and u16
+        constants stay on the device), so the caller enqueues batch i+1
+        while batch i's cascade runs. From a batch shape's second dispatch
+        on, the dispatch is one CUDA graph (engine.graphs): captured on
+        that dispatch, replayed after, and a replayed dispatch makes no
+        pyramid, stage, rung or eye spans; likewise the heads' program, one
+        graph per stack shape and face bucket (engine.heads). The
         copies and pulls release the interpreter lock, so the stages
         overlap; order is kept because both queues are FIFO. Each batch's
         spans carry its index in the stream as their request
@@ -1072,15 +1080,14 @@ class FaceDetector:
         counts = [len(p) for p in purged_per_image]
         if (estimate_attributes and self._wants_attributes()
                 and sum(counts) > 0):
-            with annotate("pfa.heads", faces=sum(counts)):
-                all_rows = np.concatenate(
-                    [_arg_rows(p, cfg) for p in purged_per_image if len(p)],
-                    axis=0)
-                img_idx = np.repeat(np.arange(len(counts)), counts)
-                ages, stds, races, genders = \
-                    heads_mod.estimate_age_race_gender_multi(
-                        stack, all_rows, img_idx, self.model,
-                        tta=cfg.arg_tta)
+            all_rows = np.concatenate(
+                [_arg_rows(p, cfg) for p in purged_per_image if len(p)],
+                axis=0)
+            img_idx = np.repeat(np.arange(len(counts)), counts)
+            ages, stds, races, genders = \
+                heads_mod.estimate_age_race_gender_multi(
+                    stack, all_rows, img_idx, self.model, tta=cfg.arg_tta,
+                    graph_cache=self._head_graphs)
 
         out: List[List[Detection]] = []
         offset = 0

@@ -18,6 +18,11 @@ results can be in flight at once. Everything else the work reads (the
 weights, the grid state, the scale table, the wire constants) is made
 before the capture and lives as long as the detector.
 
+The attribute heads (``engine/heads.py``) use a cache of their own, keyed
+by canvas stack shape, face bucket and crop count, whose work takes a
+tuple of inputs (the stack and the face table): each is copied into its
+own static tensor, and the work is called with them in order.
+
 The crop and gather wrappers count their launches when they are called;
 a capture calls them without running anything, so a capture takes its
 counts back and every replay adds them again.
@@ -32,7 +37,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Callable, Hashable, Tuple
+from typing import Callable, Hashable, Tuple, Union
 
 import torch
 
@@ -45,36 +50,46 @@ MAX_GRAPHS = 4
 
 _COUNTED = (cuda_crop.KERNEL, cuda_gather.KERNEL)
 
-Work = Callable[[torch.Tensor], torch.Tensor]
+# One tensor (a dispatch's canvas) or a tuple of them (the heads' inputs).
+Inputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+Work = Callable[..., torch.Tensor]
+
+
+def _each(inp: Inputs) -> Tuple[torch.Tensor, ...]:
+    return inp if isinstance(inp, tuple) else (inp,)
 
 
 class Graph:
-    """A captured dispatch: the graph, its static input and output, and
-    the kernel launches one replay makes (per counted kernel)."""
+    """A captured dispatch (or heads' program): the graph, its static
+    input(s) and output, and the kernel launches one replay makes (per
+    counted kernel)."""
 
-    def __init__(self, graph, static_in: torch.Tensor,
+    def __init__(self, graph, static_in: Inputs,
                  static_out: torch.Tensor, launches: Tuple[int, ...]):
         self.graph, self.static_in, self.static_out = (graph, static_in,
                                                        static_out)
         self.launches = launches
 
-    def replay(self, inp: torch.Tensor) -> torch.Tensor:
-        self.static_in.copy_(inp)
+    def replay(self, inp: Inputs) -> torch.Tensor:
+        for static, x in zip(_each(self.static_in), _each(inp)):
+            static.copy_(x)
         self.graph.replay()
         for kernel, n in zip(_COUNTED, self.launches):
             kernel.launches += n
         return self.static_out.clone()
 
 
-def capture(inp: torch.Tensor, work: Work) -> Graph:
-    """Captures ``work`` over a static copy of ``inp``'s shape. Other
-    threads may use the card meanwhile (``thread_local`` mode)."""
-    static_in = torch.empty_like(inp)
+def capture(inp: Inputs, work: Work) -> Graph:
+    """Captures ``work`` over a static copy of ``inp``'s shape (of each
+    tensor of a tuple). Other threads may use the card meanwhile
+    (``thread_local`` mode)."""
+    static_in = (tuple(torch.empty_like(x) for x in inp)
+                 if isinstance(inp, tuple) else torch.empty_like(inp))
     graph = torch.cuda.CUDAGraph()
     before = [k.launches for k in _COUNTED]
     with torch.cuda.graph(graph, stream=torch.cuda.Stream(),
                           capture_error_mode="thread_local"):
-        static_out = work(static_in)
+        static_out = work(*_each(static_in))
     launches = tuple(k.launches - n for k, n in zip(_COUNTED, before))
     for k, n in zip(_COUNTED, before):
         k.launches = n                  # nothing ran
@@ -82,7 +97,8 @@ def capture(inp: torch.Tensor, work: Work) -> Graph:
 
 
 class GraphCache:
-    """The graphs of one detector, at most :data:`MAX_GRAPHS` keys."""
+    """The graphs of one detector's dispatches (or of its heads), at most
+    :data:`MAX_GRAPHS` keys."""
 
     def __init__(self):
         self._keys: OrderedDict = OrderedDict()   # key -> Graph | None
@@ -91,11 +107,12 @@ class GraphCache:
     def __len__(self) -> int:
         return sum(g is not None for g in self._keys.values())
 
-    def run(self, key: Hashable, inp: torch.Tensor, work: Work
+    def run(self, key: Hashable, inp: Inputs, work: Work
             ) -> Tuple[torch.Tensor, bool]:
-        """``work(inp)``: eagerly on the key's first call, through a
-        capture on its second, by a replay after. Returns the result and
-        whether it came from a replay of an earlier capture."""
+        """``work(inp)`` (``work(*inp)`` for a tuple): eagerly on the key's
+        first call, through a capture on its second, by a replay after.
+        Returns the result and whether it came from a replay of an earlier
+        capture."""
         with self._lock:
             return self._run(key, inp, work)
 
@@ -104,7 +121,7 @@ class GraphCache:
             self._keys[key] = None
             if len(self._keys) > MAX_GRAPHS:
                 self._keys.popitem(last=False)
-            return work(inp), False
+            return work(*_each(inp)), False
         self._keys.move_to_end(key)
         graph = self._keys[key]
         if graph is None:

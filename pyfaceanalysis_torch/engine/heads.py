@@ -11,17 +11,21 @@ regressors: Age (with its std), Race, Gender.
 
 All faces of an image stack go through one device program: one (N*K, 96,
 96) gather, one network execution, one (4, N) result pulled to the host.
-Label->string maps per face_analysis.py:333-371.
+The faces are padded to a bucket, as in the JAX package; on a card that
+program is one CUDA graph per (stack shape, bucket, crop count)
+(``engine/graphs.py``). Label->string maps per face_analysis.py:333-371.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pyfaceanalysis_torch import normalization
+from pyfaceanalysis_torch.engine import graphs
 from pyfaceanalysis_torch.ops.contrast import contrast_enhance_patches
 from pyfaceanalysis_torch.ops.patches import extract_centered_patch
 from pyfaceanalysis_torch.utils.profiling import annotate
@@ -87,6 +91,27 @@ def _age_patch_zgrid() -> Tuple[np.ndarray, np.ndarray]:
     return gx, gy
 
 
+@functools.lru_cache(maxsize=None)
+def _zgrid_on(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_age_patch_zgrid` on ``device``, copied there once (by a
+    key's first, eager call): a graph's capture may make no
+    host-to-device copy."""
+    return tuple(torch.as_tensor(g, device=device)
+                 for g in _age_patch_zgrid())
+
+
+@functools.lru_cache(maxsize=None)
+def _tta_on(device: torch.device, k: int) -> torch.Tensor:
+    """:func:`_tta_offsets` on ``device``, copied there once."""
+    return torch.as_tensor(_tta_offsets(k), device=device)
+
+
+def _bucket(n: int) -> int:
+    """The face batch of ``n`` faces padded to a power of two, at least 4
+    (the JAX package's bucket): one graph serves every count up to it."""
+    return max(4, 1 << (n - 1).bit_length())
+
+
 def _sample_age_patches(images: torch.Tensor, centers: torch.Tensor,
                         angles: torch.Tensor, sfs: torch.Tensor,
                         img_idx: torch.Tensor) -> torch.Tensor:
@@ -98,11 +123,8 @@ def _sample_age_patches(images: torch.Tensor, centers: torch.Tensor,
     angles: (N,) deg; sfs: (N,) source px per Z px; img_idx: (N,) int.
     """
     B, H, W = images.shape
-    dev = images.device
     flat_img = images.reshape(-1)
-    gx, gy = _age_patch_zgrid()
-    gx = torch.as_tensor(gx, device=dev)
-    gy = torch.as_tensor(gy, device=dev)
+    gx, gy = _zgrid_on(images.device)
 
     sf = sfs[:, None, None]
     u = gx[None, None, :] * sf
@@ -146,7 +168,9 @@ def _arg_forward(net, dims: Tuple[int, int, int], images: torch.Tensor,
     px per Z px, img_idx: (N,) image of each face. tta_offsets: (K, 3)
     Z-frame crop perturbations; the K crops of a face run through the same
     batched products (one wider batch) and the head outputs are
-    posterior-averaged per face. All arithmetic is float32.
+    posterior-averaged per face. All arithmetic is float32, and every
+    output column depends on its own face's row alone (padding rows never
+    reach a real face's output).
     """
     n = centers.shape[0]
     k = tta_offsets.shape[0]
@@ -163,8 +187,9 @@ def _arg_forward(net, dims: Tuple[int, int, int], images: torch.Tensor,
                  + torch.stack([dx, dy], dim=-1)).reshape(n * k, 2)
     sfs_k = (sfs[:, None] * torch.exp(tta_offsets[None, :, 2])
              ).reshape(n * k)
-    angles_k = torch.repeat_interleave(angles, k)
-    idx_k = torch.repeat_interleave(img_idx, k)
+    # repeat_interleave by expansion: no size computed on the host.
+    angles_k = angles[:, None].expand(n, k).reshape(n * k)
+    idx_k = img_idx[:, None].expand(n, k).reshape(n * k)
 
     patches = _sample_age_patches(images, centers_k, angles_k, sfs_k, idx_k)
     flat = contrast_enhance_patches(patches.reshape(patches.shape[0], -1),
@@ -197,9 +222,27 @@ def _frame_arrays(rows: np.ndarray):
             angles.astype(np.float32), sfs.astype(np.float32))
 
 
+def _face_table(rows: np.ndarray, img_idx: np.ndarray,
+                bucket: int) -> np.ndarray:
+    """The (bucket, 5) float32 face table (cx, cy, angle, sf, image index)
+    of the heads' program; rows past ``len(rows)`` are padding: a face at
+    the origin of image 0, angle 0, sf 1."""
+    n = len(rows)
+    table = np.zeros((bucket, 5), np.float32)
+    table[n:, 3] = 1.0
+    centers, angles, sfs = _frame_arrays(rows)
+    table[:n, 0:2] = centers
+    table[:n, 2] = angles
+    table[:n, 3] = sfs
+    table[:n, 4] = img_idx
+    return table
+
+
 def estimate_age_race_gender_multi(images: torch.Tensor, rows: np.ndarray,
                                    img_idx: np.ndarray, model,
-                                   tta: int = 1
+                                   tta: int = 1,
+                                   graph_cache: Optional[graphs.GraphCache]
+                                   = None
                                    ) -> Tuple[np.ndarray, np.ndarray,
                                               np.ndarray, np.ndarray]:
     """Attribute heads for faces spread over an image STACK, as one device
@@ -207,29 +250,49 @@ def estimate_age_race_gender_multi(images: torch.Tensor, rows: np.ndarray,
     purged detections; img_idx: (N,) image index per row. tta: number of
     crops averaged per face (1 = reference behavior).
 
-    The JAX package pads the face batch to a power of two to spare
-    recompiles; nothing is compiled here and no output depends on the
-    padding, so the batch is exactly N faces."""
+    The batch is the N faces padded to :func:`_bucket` rows, as in the
+    JAX package; every output is per face, so the padding changes no real
+    face's result, and the (4, bucket) output is sliced back to N on the
+    host. The faces reach the device as one table; on a card it is copied
+    from pinned memory without waiting for the queued work. With a
+    ``graph_cache`` (for a stack on a card), the program runs through that
+    cache (``engine/graphs.py``), keyed by (stack shape, bucket, tta):
+    eagerly on a key's first call, captured on its second, replayed after.
+    In a ``pfa.heads`` span: ``faces`` N, ``bucket``, and ``graph`` 1 when
+    the call replayed a graph."""
     n = len(rows)
     if n == 0:
         z = np.zeros(0)
         return z, z, z, z
     dev = images.device
-    centers, angles, sfs = _frame_arrays(rows)
-    out = _arg_forward(
-        model.nets["net_age"],
-        (model.clf_input_dim("Age"), model.clf_input_dim("Race"),
-         model.clf_input_dim("Gender")),
-        images, model.classifier("Age"), model.classifier("Race"),
-        model.classifier("Gender"),
-        torch.as_tensor(centers, device=dev),
-        torch.as_tensor(angles, device=dev),
-        torch.as_tensor(sfs, device=dev),
-        torch.as_tensor(np.asarray(img_idx, np.int64), device=dev),
-        torch.as_tensor(_tta_offsets(tta), device=dev))
-    with annotate("pfa.pull"):
-        out = out.cpu().numpy()                 # ONE (4, N) pull
-    return out[0], out[1], out[2], out[3]
+    bucket = _bucket(n)
+    net = model.nets["net_age"]
+    dims = (model.clf_input_dim("Age"), model.clf_input_dim("Race"),
+            model.clf_input_dim("Gender"))
+    clfs = (model.classifier("Age"), model.classifier("Race"),
+            model.classifier("Gender"))
+    offsets = _tta_on(dev, tta)
+
+    def work(stack: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+        return _arg_forward(net, dims, stack, *clfs, faces[:, 0:2],
+                            faces[:, 2], faces[:, 3],
+                            faces[:, 4].to(torch.int64), offsets)
+
+    with annotate("pfa.heads", faces=n, bucket=bucket, graph=0) as span:
+        faces = torch.from_numpy(_face_table(rows, img_idx, bucket))
+        if dev.type == "cuda":  # one copy, from pinned memory: no wait
+            faces = faces.pin_memory().to(dev, non_blocking=True)
+        if graph_cache is None:
+            out = work(images, faces)
+        else:
+            with torch.cuda.device(dev):
+                out, replayed = graph_cache.run(
+                    (tuple(images.shape), bucket, tta), (images, faces),
+                    work)
+            span.update(graph=int(replayed))
+        with annotate("pfa.pull"):
+            out = out.cpu().numpy()             # ONE (4, bucket) pull
+    return out[0, :n], out[1, :n], out[2, :n], out[3, :n]
 
 
 def estimate_age_race_gender(image: torch.Tensor, rows: np.ndarray, model,

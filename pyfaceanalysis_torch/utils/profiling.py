@@ -37,7 +37,8 @@ The serving path's spans (``engine/detector.py``, ``engine/cascade.py``,
 - ``pfa.dispatch`` [graph]: from the grid to the enqueued result block;
   ``graph`` is 1 when the block came from a replay of the dispatch's
   CUDA graph (``engine/graphs.py``), else 0;
-- ``pfa.graph.capture``: the capture of a dispatch's CUDA graph;
+- ``pfa.graph.capture``: the capture of a dispatch's or the heads' CUDA
+  graph;
 - ``pfa.grid`` [rows, real]: the window grid, cached or tracking;
 - ``pfa.pyramid``: the scale pyramid;
 - ``pfa.stage.NN.<Kind>`` [rows]: cascade stage NN (00-16) of its kind;
@@ -47,7 +48,10 @@ The serving path's spans (``engine/detector.py``, ``engine/cascade.py``,
   heads, ``Detection`` assembly;
 - ``pfa.pull``: a blocking device-to-host copy;
 - ``pfa.nms`` [rows_in, kept]: host NMS of the pulled rows;
-- ``pfa.heads`` [faces]: the attribute heads' device program;
+- ``pfa.heads`` [faces, bucket, graph]: the attribute heads' device
+  program over ``faces`` faces padded to ``bucket`` rows; ``graph`` is 1
+  when it came from a replay of the heads' CUDA graph
+  (``engine/heads.py``), else 0;
 - ``pfa.assemble`` [detections]: the ``Detection`` lists;
 - ``pfa.stream.wait_input`` / ``pfa.stream.wait_result``:
   ``detect_stream``'s caller waiting for the producer's next batch / for

@@ -234,8 +234,8 @@ def _assemble(monkeypatch, purged_per_image, cfg, attributes):
     attrs = [rng.uniform(-3, 80, n).astype(np.float32) for _ in range(4)]
     monkeypatch.setattr(
         detector_mod.heads_mod, "estimate_age_race_gender_multi",
-        lambda stack, rows, img_idx, model, tta: tuple(attrs))
-    det = types.SimpleNamespace(config=cfg, model=None,
+        lambda stack, rows, img_idx, model, tta, graph_cache: tuple(attrs))
+    det = types.SimpleNamespace(config=cfg, model=None, _head_graphs=None,
                                 _wants_attributes=lambda: True)
     got = FaceDetector._assemble_batch(det, None, purged_per_image,
                                        attributes)

@@ -163,7 +163,8 @@ def test_detect_and_stream_spans_on_their_threads(log, tmp_path):
     assert rungs == [{"rows_in": 64, "rows_out": 32},
                      {"rows_in": 32, "rows_out": 16}]
     assert by["pfa.nms"].counts["kept"] == len(one)
-    assert by["pfa.heads"].counts == {"faces": len(one)}
+    assert by["pfa.heads"].counts == {"faces": len(one), "bucket": max(
+        4, 1 << (len(one) - 1).bit_length()), "graph": 0}
     assert by["pfa.assemble"].counts == {"detections": len(one)}
 
     rest = [s for s in got if s.start_ns >= top.end_ns]
