@@ -8,12 +8,16 @@ approximate eye boxes -> eye localization (engine.eyes) -> host NMS
 
 Host/device split as in the JAX package: grid construction, NMS and
 bookkeeping are host numpy; everything per window runs on the model's
-device. One (k_out, 11) block crosses back to the host per image
-(``detect``), or one (B, k, 11) block per batch (``detect_batch`` in its
-fused mode: ONE cascade over the windows of every image of the batch), plus
-one (4, N) block of attributes. ``detect_stream`` keeps several batches in
-flight. With ``config.data_mesh`` above 1 the window batch of ``detect``
-and of the fused batch is sharded over a data mesh of that many devices
+device. One function, ``_detect_core``, is the device program of both
+``detect`` and the fused ``detect_batch`` (ONE cascade over the windows of
+every image of the batch): cascade, ranking, eye pass, too-far gate and
+result block over (B, k) rows, one image being B = 1; only which rows the
+ranking selects depends on whether the rows carry an image index. One
+(k_out, 11) block crosses back to the host per image (``detect``), or one
+(B, k, 11) block per batch, plus one (4, N) block of attributes.
+``detect_stream`` keeps several batches in flight. With
+``config.data_mesh`` above 1 the window batch of ``detect`` and of the
+fused batch is sharded over a data mesh of that many devices
 (``parallel.mesh``); the ranking, the eye pass and the heads run on the
 first device over all survivors.
 """
@@ -298,115 +302,33 @@ def _row_eyes(r: List[float], cfg=None
 
 
 def _detect_core(model: DetectionModel, cfg: DetectorConfig, k_out: int,
-                 image: torch.Tensor, state: cascade_mod.CascadeState,
+                 images: torch.Tensor, state: cascade_mod.CascadeState,
                  pyramid: Optional[torch.Tensor] = None,
                  crops: Optional[torch.Tensor] = None,
                  pyr_scales: Optional[torch.Tensor] = None,
-                 shards: Optional[List[cascade_mod.Shard]] = None
+                 shards: Optional[List[cascade_mod.Shard]] = None,
+                 n_images: int = 1, n_per_image: int = 0, n_levels: int = 0
                  ) -> torch.Tensor:
-    """Cascade + survivor ranking + eye localization on the device.
+    """Cascade + survivor ranking + eye localization on the device, for one
+    image or for a FUSED batch of ``n_images`` same-sized images.
 
-    With ``shards`` (``FaceDetector._apply_mesh``) the cascade runs sharded
-    and its survivors come back to ``image``'s device, where the rest
-    runs.
+    One image: ``images`` is the (H, W) canvas and ``state`` comes from
+    ``cascade.make_grid_state`` (rows carry no image index). Fused batch:
+    ``images`` is a (B, H, W) stack, ``state`` comes from
+    ``cascade.make_batched_grid_state`` (tiled grid + img_idx, real rows
+    ``n_per_image`` per image), ``pyramid`` holds the stacked per-image
+    pyramids ((B * n_levels, lh, lw)) and ``pyr_scales`` the single-image
+    ladder tiled B times. ONE cascade runs over the windows of all images:
+    every stage product is B times taller for the same total work, and the
+    launches per image fall B-fold. With ``shards``
+    (``FaceDetector._apply_mesh``) the cascade runs sharded and its
+    survivors come back to ``images``' device, where the rest runs.
 
-    Returns a (k_out, 11) block [x0, y0, x1, y1, angle, elx, ely, erx, ery,
-    conf, valid]; with config.eye_iters > 1 a (k_out, 15) block whose cols
-    11-14 are the refined eye centres (cols 5-8 stay pass 1, which the
-    too-far gate and NMS use).
-    """
-    geom = model.spec.face_geom
-    eye_geom = model.spec.eye_geom
-    patch_hw = (geom.subimage_height, geom.subimage_width)
-    if shards is None:
-        shards = [cascade_mod.Shard(state, crops, model.det_nets,
-                                    model.det_clfs, image, pyramid,
-                                    pyr_scales)]
-    out = cascade_mod.run_cascade_shards(model.plan, geom, cfg, patch_hw,
-                                         shards)
-
-    with annotate("pfa.eyes") as span:
-        # Alive rows first, best (lowest) Disc confidence first within them.
-        # The eye sub-cascade runs on at most eye_max_faces rows; rows beyond
-        # the cap keep the geometric eye prior and skip the too-far gate.
-        k_out = min(k_out, out.mask.shape[0])
-        eye_cap = min(k_out, max(cfg.eye_max_faces, 8))
-        rank = torch.where(out.mask, out.conf, torch.full_like(out.conf, 2.0))
-        idx = torch.argsort(rank, stable=True)[:k_out]
-        boxes = out.boxes[idx]
-        angles = out.angles[idx]
-        conf = out.conf[idx]
-        valid = out.mask[idx]
-
-        _, l_boxes, r_boxes = \
-            geometry.compute_approximate_eye_boxes_coordinates(
-                boxes, angles, face_sampling=DESIRED_SAMPLING,
-                eye_sampling=EYE_SAMPLING)
-        eye_boxes = torch.cat([l_boxes[:eye_cap], r_boxes[:eye_cap]], dim=0)
-        span.update(rows=int(eye_boxes.shape[0]))
-        both_angles = torch.cat([angles[:eye_cap], angles[:eye_cap]], dim=0)
-        samplers = (cascade_mod.level_samplers(cfg, image.device)
-                    if pyramid is not None else None)
-        eye_kw = dict(pyramid=pyramid, pyr_scales=pyr_scales,
-                      level_sampler=None if samplers is None else samplers[1])
-        eye_net = model.nets["net_eye"]
-        eye_args = (eye_net, model.clf_input_dim("EyeLX"),
-                    model.clf_input_dim("EyeLY"),
-                    (eye_geom.subimage_height, eye_geom.subimage_width), image,
-                    model.classifier("EyeLX"), model.classifier("EyeLY"))
-        pass1_boxes, max_reg = eyes_mod.localize_eyes(
-            *eye_args, eye_boxes, both_angles, **eye_kw)
-        # Optional refinement passes: a pure OUTPUT refinement
-        # (config.eye_iters).
-        new_boxes = pass1_boxes
-        for _ in range(cfg.eye_iters - 1):
-            new_boxes, _ = eyes_mod.localize_eyes(
-                *eye_args, new_boxes, both_angles, **eye_kw)
-        l_new = torch.cat([pass1_boxes[:eye_cap], l_boxes[eye_cap:]], dim=0)
-        r_new = torch.cat([pass1_boxes[eye_cap:], r_boxes[eye_cap:]], dim=0)
-        too_far = max_reg >= cfg.tolerance_xy_eye
-        bad = too_far[:eye_cap] | too_far[eye_cap:]
-        bad = torch.cat([bad, torch.zeros(k_out - eye_cap, dtype=torch.bool,
-                                          device=bad.device)], dim=0)
-        valid = valid & torch.logical_not(bad)
-        l_c = (l_new[:, 0:2] + l_new[:, 2:4]) / 2.0
-        r_c = (r_new[:, 0:2] + r_new[:, 2:4]) / 2.0
-        cols = [boxes, angles[:, None], l_c, r_c, conf[:, None],
-                valid[:, None].to(torch.float32)]
-        if cfg.eye_iters > 1:
-            l_ref = torch.cat([new_boxes[:eye_cap], l_boxes[eye_cap:]], dim=0)
-            r_ref = torch.cat([new_boxes[eye_cap:], r_boxes[eye_cap:]], dim=0)
-            cols += [(l_ref[:, 0:2] + l_ref[:, 2:4]) / 2.0,
-                     (r_ref[:, 0:2] + r_ref[:, 2:4]) / 2.0]
-        return torch.cat(cols, dim=1)
-
-
-def _detect_core_batch(model: DetectionModel, cfg: DetectorConfig,
-                       k_out: int, n_images: int, n_per_image: int,
-                       n_levels: int, images: torch.Tensor,
-                       state: cascade_mod.CascadeState,
-                       pyramid: Optional[torch.Tensor] = None,
-                       crops: Optional[torch.Tensor] = None,
-                       pyr_scales: Optional[torch.Tensor] = None,
-                       shards: Optional[List[cascade_mod.Shard]] = None
-                       ) -> torch.Tensor:
-    """FUSED multi-image detection: ONE cascade over the windows of all
-    ``n_images`` same-sized images plus one eye sub-cascade.
-
-    The per-image path runs B cascades whose per-stage products are only a
-    few hundred rows after compaction; fusing makes every stage product
-    B times taller for the same total work and divides the launches per
-    image by B.
-
-    Args mirror ``_detect_core`` with: ``images`` a (B, H, W) stack;
-    ``state`` from ``cascade.make_batched_grid_state`` (tiled grid +
-    img_idx); ``pyramid`` the stacked per-image pyramids ((B * L, lh, lw));
-    ``pyr_scales`` the single-image ladder tiled B times; ``n_levels`` = L;
-    ``shards`` as in ``_detect_core``.
-
-    Returns (B, k, 11) detection blocks (k = min(k_out, rows per image
-    after compaction)), rows ranked best-first per image; (B, k, 15) with
-    config.eye_iters > 1; packed to uint16 with config.wire_format "u16".
+    Returns (B, k, 11) blocks [x0, y0, x1, y1, angle, elx, ely, erx, ery,
+    conf, valid], rows ranked best-first per image (B = 1 for one image;
+    k = min(k_out, rows per image after compaction)); with config.eye_iters
+    > 1, (B, k, 15) blocks whose cols 11-14 are the refined eye centres
+    (cols 5-8 stay pass 1, which the too-far gate and NMS use).
     """
     geom = model.spec.face_geom
     eye_geom = model.spec.eye_geom
@@ -420,45 +342,57 @@ def _detect_core_batch(model: DetectionModel, cfg: DetectorConfig,
         n_per_image=n_per_image)
 
     with annotate("pfa.eyes") as span:
-        # Per-image ranked top-k via one stable composite-key sort: rows are
-        # grouped contiguously by image (exactly n_last per image; padding
-        # sorts last through the img_idx sentinel) -- see run_cascade.
-        n_last = cascade_mod.compacted_rows_per_image(model.plan, cfg,
-                                                      n_per_image)
-        k = min(k_out, n_last)
-        rank = (torch.where(out.mask, torch.clamp(out.conf, 0.0, 1.999),
-                            torch.full_like(out.conf, 2.0))
-                + 4.0 * out.img_idx.to(torch.float32))
-        order = torch.argsort(rank, stable=True)
-        idx = order[:n_images * n_last].reshape(n_images, n_last)[:, :k]
+        # Alive rows first, best (lowest) Disc confidence first within them.
+        if out.img_idx is None:
+            k = min(k_out, out.mask.shape[0])
+            rank = torch.where(out.mask, out.conf,
+                               torch.full_like(out.conf, 2.0))
+            idx = torch.argsort(rank, stable=True)[:k][None]
+        else:
+            # Per image, by one stable composite-key sort: rows are grouped
+            # contiguously by image (exactly n_last per image; padding
+            # sorts last through the img_idx sentinel) -- see run_cascade.
+            n_last = cascade_mod.compacted_rows_per_image(model.plan, cfg,
+                                                          n_per_image)
+            k = min(k_out, n_last)
+            rank = (torch.where(out.mask, torch.clamp(out.conf, 0.0, 1.999),
+                                torch.full_like(out.conf, 2.0))
+                    + 4.0 * out.img_idx.to(torch.float32))
+            order = torch.argsort(rank, stable=True)
+            idx = order[:n_images * n_last].reshape(n_images, n_last)[:, :k]
         flat = idx.reshape(-1)
         boxes = out.boxes[flat]                                # (B*k, 4)
         angles = out.angles[flat]
         conf = out.conf[flat]
         valid = out.mask[flat]
 
-        # Eye sub-cascade on the top eye_cap rows of EACH image (same cap
-        # semantics as the single-image path; rows beyond the cap keep the
-        # geometric prior and skip the too-far gate).
+        # The eye sub-cascade runs on the top eye_cap rows of EACH image;
+        # rows beyond the cap keep the geometric eye prior and skip the
+        # too-far gate.
         eye_cap = min(k, max(cfg.eye_max_faces, 8))
+
+        def per_image(t):                                      # (B, k, ...)
+            return t.reshape(n_images, k, *t.shape[1:])
+
+        def capped(t):                                         # (B*eye_cap,)
+            return per_image(t)[:, :eye_cap].reshape(-1, *t.shape[1:])
+
+        def both(t):                                           # L rows, R rows
+            return torch.cat([t, t], dim=0)
+
         _, l_all, r_all = geometry.compute_approximate_eye_boxes_coordinates(
             boxes, angles, face_sampling=DESIRED_SAMPLING,
             eye_sampling=EYE_SAMPLING)
-        l_all = l_all.reshape(n_images, k, 4)
-        r_all = r_all.reshape(n_images, k, 4)
-        sub = idx[:, :eye_cap].reshape(-1)                     # (B*eye_cap,)
-        ang_sub = out.angles[sub]
-        img_sub = out.img_idx[sub]
-        eye_boxes = torch.cat([l_all[:, :eye_cap].reshape(-1, 4),
-                               r_all[:, :eye_cap].reshape(-1, 4)], dim=0)
+        eye_boxes = torch.cat([capped(l_all), capped(r_all)], dim=0)
         span.update(rows=int(eye_boxes.shape[0]))
-        both_angles = torch.cat([ang_sub, ang_sub], dim=0)
-        both_img = torch.cat([img_sub, img_sub], dim=0)
+        both_angles = both(capped(angles))
         samplers = (cascade_mod.level_samplers(cfg, images.device)
                     if pyramid is not None else None)
         eye_kw = dict(pyramid=pyramid, pyr_scales=pyr_scales,
-                      level_sampler=None if samplers is None else samplers[1],
-                      image_idx=both_img, n_base_levels=n_levels)
+                      level_sampler=None if samplers is None else samplers[1])
+        if out.img_idx is not None:
+            eye_kw.update(image_idx=both(capped(out.img_idx[flat])),
+                          n_base_levels=n_levels)
         eye_args = (model.nets["net_eye"], model.clf_input_dim("EyeLX"),
                     model.clf_input_dim("EyeLY"),
                     (eye_geom.subimage_height, eye_geom.subimage_width),
@@ -466,41 +400,35 @@ def _detect_core_batch(model: DetectionModel, cfg: DetectorConfig,
                     model.classifier("EyeLY"))
         pass1_boxes, max_reg = eyes_mod.localize_eyes(
             *eye_args, eye_boxes, both_angles, **eye_kw)
-        # config.eye_iters refinement passes; pure output refinement -- gate,
-        # NMS and heads consume pass 1, refined centers appended as cols 11-14
-        # (see _detect_core).
+        # Optional refinement passes: a pure OUTPUT refinement
+        # (config.eye_iters).
         new_boxes = pass1_boxes
         for _ in range(cfg.eye_iters - 1):
             new_boxes, _ = eyes_mod.localize_eyes(
                 *eye_args, new_boxes, both_angles, **eye_kw)
         m = n_images * eye_cap
 
-        def fin_centers(eb):
+        def centres(eb):
             l_fin = torch.cat([eb[:m].reshape(n_images, eye_cap, 4),
-                               l_all[:, eye_cap:]], dim=1)
+                               per_image(l_all)[:, eye_cap:]], dim=1)
             r_fin = torch.cat([eb[m:].reshape(n_images, eye_cap, 4),
-                               r_all[:, eye_cap:]], dim=1)
+                               per_image(r_all)[:, eye_cap:]], dim=1)
             return ((l_fin[..., 0:2] + l_fin[..., 2:4]) / 2.0,
                     (r_fin[..., 0:2] + r_fin[..., 2:4]) / 2.0)
 
-        l_c, r_c = fin_centers(pass1_boxes)
         too_far = (max_reg >= cfg.tolerance_xy_eye).reshape(
             2, n_images, eye_cap)
         bad = too_far[0] | too_far[1]                          # (B, eye_cap)
         bad = torch.cat([bad, torch.zeros((n_images, k - eye_cap),
                                           dtype=torch.bool,
                                           device=bad.device)], dim=1)
-        valid = valid.reshape(n_images, k) & torch.logical_not(bad)
-        cols = [boxes.reshape(n_images, k, 4),
-                angles.reshape(n_images, k)[..., None], l_c, r_c,
-                conf.reshape(n_images, k)[..., None],
+        valid = per_image(valid) & torch.logical_not(bad)
+        cols = [per_image(boxes), per_image(angles)[..., None],
+                *centres(pass1_boxes), per_image(conf)[..., None],
                 valid[..., None].to(torch.float32)]
         if cfg.eye_iters > 1:
-            cols += list(fin_centers(new_boxes))
-        block = torch.cat(cols, dim=2)
-        if cfg.wire_format == "u16":
-            block = _pack_wire(block, max(images.shape[-2:]))
-        return block
+            cols += list(centres(new_boxes))
+        return torch.cat(cols, dim=2)
 
 
 class FaceDetector:
@@ -750,7 +678,7 @@ class FaceDetector:
                     state, crops, image, pyramid, scales_arr))
                 return _detect_core(model, cfg, cfg.max_detections, image,
                                     state, pyramid, crops, scales_arr,
-                                    shards)
+                                    shards)[0]
 
             block, replayed = self._device_work(
                 work, device_image, (im_w, im_h, 0),
@@ -785,7 +713,7 @@ class FaceDetector:
 
         cfg.batch_mode selects the device strategy:
         - "fused" (default): ONE cascade over every image's windows
-          (_detect_core_batch) -- per-stage products are B times taller
+          (_detect_core) -- per-stage products are B times taller
           for the same work and the launches per image fall B-fold; one
           (B, k, 11) result pull. More than ``max_fused_batch`` images are
           processed in chunks of that size.
@@ -838,9 +766,10 @@ class FaceDetector:
         fused cascade.
 
         Returns ``(stack, future)`` where ``future`` is the not-yet-pulled
-        (B, k, 11) device block (None when the grid is empty). On CUDA the
-        cascade runs asynchronously -- callers can overlap it with host
-        work or with pulling a previous batch (see detect_stream).
+        (B, k, 11) device block (None when the grid is empty), packed to
+        uint16 with config.wire_format "u16". On CUDA the cascade runs
+        asynchronously -- callers can overlap it with host work or with
+        pulling a previous batch (see detect_stream).
         ``stack`` may carry the canvas batch already on the device (the
         stream's producer thread makes it; None = convert and copy here).
         ``request`` names the batch in the spans (utils.profiling)."""
@@ -868,10 +797,13 @@ class FaceDetector:
                     crops_b, scales_arr = pyr_b.crops, scales_b
                 shards = (None if self._mesh is None else self._apply_mesh(
                     state_b, crops_b, canvases, pyramid_b, scales_arr))
-                return _detect_core_batch(
-                    model, cfg, cfg.max_detections, B, n_real, n_levels,
-                    canvases, state_b, pyramid_b, crops_b, scales_arr,
-                    shards)
+                block = _detect_core(
+                    model, cfg, cfg.max_detections, canvases, state_b,
+                    pyramid_b, crops_b, scales_arr, shards, n_images=B,
+                    n_per_image=n_real, n_levels=n_levels)
+                if cfg.wire_format == "u16":
+                    block = _pack_wire(block, max(canvases.shape[-2:]))
+                return block
 
             fut, replayed = self._device_work(work, stack, (im_w, im_h, B),
                                               self._graphable(pyr_b))

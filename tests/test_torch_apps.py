@@ -28,6 +28,7 @@ import torch
 from test_detector import random_artifact_dir  # noqa: F401  (fixture)
 from test_torch_batch import SCENES
 from test_torch_detect import _scene
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch import viz as t_viz
 from pyfaceanalysis_torch.apps import camera as t_camera

@@ -59,6 +59,7 @@ from test_torch_detect import (
     _port_classifier,
     _scene,
 )
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch.config import DetectorConfig as TConfig
 from pyfaceanalysis_torch.engine import cascade as t_cascade
@@ -751,9 +752,8 @@ def test_u16_wire_range_guards(models):
     assert det_f32._fit_canvas(7200, 64) == (7680, 7680)
 
 
-def test_data_mesh_is_not_ported(models):
-    """The data mesh is ported (the name is kept from when it was not):
-    ``FaceDetector(data_mesh=2, device="cpu")`` gives ``detect`` the
+def test_data_mesh_detect_matches_unsharded(models):
+    """``FaceDetector(data_mesh=2, device="cpu")`` gives ``detect`` the
     results of ``data_mesh=0``, the window batch sharded over two CPU
     copies."""
     _, tm = models

@@ -17,6 +17,7 @@ import pytest
 import torch
 from test_detector import random_artifact_dir  # noqa: F401  (fixture)
 from test_engine import _const_classifier, _identity_net
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch.config import DetectorConfig as TConfig
 from pyfaceanalysis_torch.config import resolve_device

@@ -11,6 +11,7 @@ import types
 import numpy as np
 import pytest
 from test_evaluation import _Det, _truth_row
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch.config import DetectorConfig as TConfig
 from pyfaceanalysis_torch.config import NetGeometry as TGeometry

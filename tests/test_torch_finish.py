@@ -13,6 +13,7 @@ import types
 
 import numpy as np
 import pytest
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch import normalization
 from pyfaceanalysis_torch.config import DetectorConfig

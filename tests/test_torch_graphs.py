@@ -23,6 +23,7 @@ import weakref
 import numpy as np
 import pytest
 import torch
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch.config import DetectorConfig, NetGeometry
 from pyfaceanalysis_torch.engine import cascade as cascade_mod

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 from test_detector import random_artifact_dir  # noqa: F401  (fixture)
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch import normalization as t_norm
 from pyfaceanalysis_torch.config import DetectorConfig as TConfig

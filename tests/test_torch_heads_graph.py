@@ -20,6 +20,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch.config import DetectorConfig
 from pyfaceanalysis_torch.engine import detector as detector_mod

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch import geometry as t_geometry
 from pyfaceanalysis_torch.config import NetGeometry as TGeometry

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch.io import artifacts as t_art
 from pyfaceanalysis_torch.models.expansion import Expansion as TExpansion

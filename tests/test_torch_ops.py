@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import fair_torch_threads  # noqa: F401  (autouse)
 
 from pyfaceanalysis_torch.engine.eyes import _eye_levels as t_eye_levels
 from pyfaceanalysis_torch.ops import contrast as t_contrast
