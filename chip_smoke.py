@@ -20,11 +20,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    excluded. The gather computes its affine coefficients itself, so the
    count of output pixels that differ at all is reported inside and outside
    the tie mask (outside must be 0), and the coefficients are held bit for
-   bit against ``pyramid_affine``.
+   bit against ``pyramid_affine``. The layer kernel: every network of the
+   model at bf16 and float32 operands, on the grid's crops of one image
+   (512 rows) and of the fused batch (8,192), each layer's operand and
+   each network's output equal to the plain path's bit for bit (their
+   largest difference is the kernel's ``max_abs_err``), and its spow column
+   on all 2^32 float32 bit patterns at each exponent of the model's spow
+   layers.
 4. One image: ``FaceDetector(model, device="cuda").detect(img)`` with the
    attribute heads, launch counts set to 0 just before and read just
    after; fails if a kernel was not launched or an attribute is not
-   finite. Again with ``pallas_refine="ref"`` (plain versions): the same
+   finite. The layer kernel's launches are counted apart (the "ref" route
+   runs the networks too) and printed, here and for the fused batch.
+   Again with ``pallas_refine="ref"`` (plain versions): the same
    detections (1e-3 px, 1e-4 confidence) and attributes (1e-3).
 5. Fused batch: ``detect_batch`` of the scenes at the default config,
    counts set to 0 before and read after: one crop launch and one gather
@@ -47,8 +55,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    same function, at the single-image and the fused shape, in device time
    (the sum of their GPU kernels' durations in a trace), beside the bound
    computed from this run's inputs (bytes over 3.35 TB/s HBM, or float32
-   operations over 67 TFLOP/s). The same trace counts the GPU launches of
-   one wrapper call: more than one fails.
+   operations over 67 TFLOP/s); the layer kernel at layers 0 and 1 of
+   ``net_disc`` (bf16) at both shapes. The same trace counts the GPU
+   launches of one wrapper call: more than one fails.
 8. The command line: ``pyfaceanalysis_torch.apps.detect.main`` on the same
    scenes, written as PNG files where PIL imports (the re-loaded 8-bit
    array is then the scene that is compared), else held in memory behind
@@ -488,6 +497,91 @@ def time_gather(torch, label, pyramid, scales, lv, bx, an, iters) -> dict:
           f"read); CUDA events {ev:.6f} ms/call (wrapper)")
     return {"rows": B, "ms": ms, "plain_ms": plain, "bound_ms": bound * 1e3,
             "bound_by": by, "library_ms": lib, "launches_per_call": n}
+
+
+def net_layer_chain(torch, net, x, cd, label: str) -> float:
+    """Runs ``net`` on ``x`` through the layer kernel and through the plain
+    path on the card, layer by layer; fails unless every layer's operand
+    and the network's output are equal bit for bit (NaNs included).
+    Returns the largest |kernel - plain| over every operand and output
+    (0 where both are NaN or the same infinity; inf where one is NaN)."""
+    from pyfaceanalysis_torch.models.network import (
+        apply_network,
+        layer_operand,
+        layer_operand_ref,
+    )
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def abs_err(got, want):
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        d = torch.where(same, 0.0, (got - want).abs())
+        return float(torch.nan_to_num(d, nan=float("inf")).max())
+
+    y, clip, err = x, None, 0.0
+    for li, (spec, node, index) in enumerate(zip(net.specs, net.params,
+                                                 net.indices)):
+        got = layer_operand(spec, node, index, y, clip, cd)
+        want = layer_operand_ref(spec, node, index, y, clip, cd)
+        err = max(err, abs_err(got, want))
+        if not torch.equal(bits(got), bits(want)):
+            fail(f"layer kernel operand differs from the plain path "
+                 f"({label}, layer {li})")
+        y = torch.einsum("bfd,fdo->bfo", want, node.W.to(cd).float()
+                         if cd is not None else node.W)
+        clip = spec.clip
+    want = torch.clamp(y, -clip, clip).reshape(y.shape[0], -1)
+    got = apply_network(net, x, compute_dtype=cd)
+    err = max(err, abs_err(got, want))
+    if not torch.equal(bits(got), bits(want)):
+        fail(f"network output through the layer kernel differs ({label})")
+    return err
+
+
+def time_net_layer(torch, label, net, x, cd, iters, layers=(0, 1)) -> list:
+    """Device time per call of the layer kernel at ``layers`` of ``net`` on
+    ``x``'s rows (each layer's input as the chain leaves it), of its plain
+    version on the card, and the bound: the layer's inputs read once, its
+    operand written once, the switchboard, mean and column table, over the
+    card's HBM rate."""
+    from pyfaceanalysis_torch.models.network import (
+        layer_operand,
+        layer_operand_ref,
+        layer_product,
+    )
+    B = x.shape[0]
+    inputs, y, clip = [], x, None
+    for spec, node, index in zip(net.specs, net.params, net.indices):
+        inputs.append((y, clip))
+        y = layer_product(spec, node, index, y, clip, cd)
+        clip = spec.clip
+    rows = []
+    for li in layers:
+        spec, node, index = net.specs[li], net.params[li], net.indices[li]
+        xi, ci = inputs[li]
+        F, k = index.shape
+        D = spec.expansion.output_dim(k)
+        n_bytes = (xi.numel() * 4 + B * F * D * 4 + F * k * 8 + F * D * 4
+                   + D * 4)
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+
+        def kern():
+            return layer_operand(spec, node, index, xi, ci, cd)
+
+        ms, n = device_ms(torch, kern, iters)
+        plain, plain_n = device_ms(torch, lambda: layer_operand_ref(
+            spec, node, index, xi, ci, cd), max(iters // 5, 3))
+        print(f"net_layer {label} layer {li} B={B} F={F} k={k} D={D} "
+              f"{spec.expansion.name}: device {ms:.6f} ms in {n} GPU launch "
+              f"per call (plain version {plain:.6f} ms in {plain_n}), bound "
+              f"{bound:.6f} ms by bytes ({bound / ms * 100:.1f}%)")
+        if n is not None and n > 1:
+            fail(f"one layer kernel call ({label}) made {n} GPU launches")
+        rows.append({"layer": li, "rows": B, "ms": ms, "plain_ms": plain,
+                     "plain_launches": plain_n, "bound_ms": bound,
+                     "bound_by": "bytes", "launches_per_call": n})
+    return rows
 
 
 def det_rows(dets, attributes: bool = False) -> np.ndarray:
@@ -1313,7 +1407,11 @@ def main() -> None:
             FaceDetector,
         )
         from pyfaceanalysis_torch.engine.eyes import _eye_levels
-        from pyfaceanalysis_torch.ops import cuda_crop, cuda_gather
+        from pyfaceanalysis_torch.ops import (
+            cuda_crop,
+            cuda_gather,
+            cuda_net_layer,
+        )
         from pyfaceanalysis_torch.ops.cuda_build import build_all
         from pyfaceanalysis_torch.ops.pyramid import (
             build_pyramid,
@@ -1342,11 +1440,14 @@ def main() -> None:
 
     # -- 1. build ------------------------------------------------------------
     kernels = {"crop": cuda_crop.KERNEL, "gather": cuda_gather.KERNEL}
+    # The layer kernel runs in every network forward, the "ref" routes'
+    # included, so it is counted apart from the two pyramid kernels.
+    layer = cuda_net_layer.KERNEL
     t0 = time.perf_counter()
-    build_all(list(kernels.values()))
-    print(f"build: {time.perf_counter() - t0:.2f} s for {len(kernels)} "
+    build_all(list(kernels.values()) + [layer])
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(kernels) + 1} "
           "kernels (nvcc in parallel; 0 when already built)")
-    for name, k in kernels.items():
+    for name, k in {**kernels, "net_layer": layer}.items():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}")
@@ -1460,7 +1561,7 @@ def main() -> None:
     feye_angles = rand(n_feye, -24.0, 24.0)
 
     # -- 3. kernels against their plain versions ------------------------------
-    errs = {"crop": 0.0, "gather": 0.0}
+    errs = {"crop": 0.0, "gather": 0.0, "net_layer": 0.0}
     for label, (p, c) in {"single": (pyramid, crops),
                           "fused": (pyramid_b, crops_b)}.items():
         got = cuda_crop.crop_patches_kernel(p, c, (64, 64))
@@ -1486,19 +1587,62 @@ def main() -> None:
              feye_angles, (((64, 64), ("nearest", "bilinear")),))):
         errs["gather"] = max(errs["gather"], check_gather(
             torch, name, p, s, lv, bx, an, shapes))
+    # The layer kernel: every network of the model, bf16 and float32
+    # operands, on the grid's crops of one image and of the fused batch
+    # (96x96 networks on uniform noise), held bit for bit to the plain path.
+    layer_rows = {"single": crop_patches(pyramid, crops, (64, 64)),
+                  "fused": crop_patches(pyramid_b, crops_b, (64, 64))}
+    for label, p64 in layer_rows.items():
+        n_rows = p64.shape[0]
+        for net_name, net in sorted(model.nets.items()):
+            hw = net.input_hw
+            x = (p64.reshape(n_rows, -1) if hw == (64, 64) else
+                 torch.rand(n_rows, hw[0] * hw[1], generator=g).to(dev))
+            for cd in (torch.bfloat16, None):
+                errs["net_layer"] = max(errs["net_layer"], net_layer_chain(
+                    torch, net, x, cd, f"{net_name} {label} B={n_rows} {cd}"))
+        print(f"check net_layer {label} B={n_rows}: the operand of every "
+              f"layer and the output of {len(model.nets)} networks, bf16 "
+              f"and float32, equal to the plain path bit for bit")
+    del layer_rows
+    # Its spow column on every float32 bit pattern, at each exponent of the
+    # model's spow layers (the pow's shortcut at 0.8 falls back to
+    # libdevice's pow where the rounding is close; other exponents take it).
+    exponents = sorted({float(np.float32(spec.expansion.exponent))
+                        for net in model.nets.values() for spec in net.specs
+                        if spec.expansion.name == "spow"})
+    chunk = 1 << 27
+    for e in exponents:
+        for lo in range(-(1 << 31), 1 << 31, chunk):
+            xs = torch.arange(lo, lo + chunk, dtype=torch.int32,
+                              device=dev).view(torch.float32)
+            want = torch.sign(xs) * (torch.abs(xs).double()
+                                     ** e).to(xs.dtype)
+            if not torch.equal(
+                    cuda_net_layer.spow_kernel(xs, e).view(torch.int32),
+                    want.view(torch.int32)):
+                fail(f"the layer kernel's spow at {e} differs from the "
+                     f"plain path on the bit patterns {lo} .. {lo + chunk}")
+        del xs, want
+    print(f"check net_layer spow: all 2^32 float32 bit patterns at the "
+          f"exponents {exponents} equal to the plain path bit for bit")
 
     # -- 4. one image, with attributes: kernels, then plain versions ----------
     det_ref = FaceDetector(model, DetectorConfig(pallas_refine="ref"),
                            device=dev)
     reset_counts()
+    layer_before = layer.launches
     t0 = time.perf_counter()
     dets = det.detect(img)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = counts()
+    layer_detect = layer.launches - layer_before
     print(f"detect (kernels): {det.windows_scanned} windows scanned, "
           f"{len(dets)} detections, first call {first_s * 1e3:.1f} ms, "
-          f"launches {launches}")
+          f"launches {launches}, layer kernel {layer_detect}")
+    if layer_detect == 0:
+        fail("detect never launched the layer kernel")
     for name, n in launches.items():
         if n == 0:
             fail(f"detect never launched the {name} kernel")
@@ -1524,17 +1668,19 @@ def main() -> None:
                  + det.config.eye_iters)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    layer_before = layer.launches
     t0 = time.perf_counter()
     batch = det.detect_batch(scenes)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches_batch = counts()
+    layer_batch = layer.launches - layer_before
     peak_batch = torch.cuda.max_memory_allocated()
     print(f"detect_batch of {B} (fused, kernels): "
           f"{sum(len(d) for d in batch)} detections, first call "
           f"{first_s * 1e3:.1f} ms, launches {launches_batch} (expected 1 "
-          f"crop, {n_gathers} gathers), peak device memory "
-          f"{peak_batch / 1e6:.0f} MB")
+          f"crop, {n_gathers} gathers), layer kernel {layer_batch}, peak "
+          f"device memory {peak_batch / 1e6:.0f} MB")
     if launches_batch != {"crop": 1, "gather": n_gathers}:
         fail("one fused batch must launch 1 crop and "
              f"{n_gathers} gathers, not {launches_batch}")
@@ -1681,6 +1827,13 @@ def main() -> None:
                            ref_boxes, ref_angles, 100)
     gather_b = time_gather(torch, "fused", pyramid_b, scales_b, fused_levels,
                            fused_boxes, fused_angles, 20)
+    disc = model.nets["net_disc"]
+    layer_1 = time_net_layer(torch, "single", disc, crop_patches(
+        pyramid, crops, (64, 64)).reshape(crops.shape[0], -1),
+        torch.bfloat16, 50)
+    layer_b = time_net_layer(torch, "fused", disc, crop_patches(
+        pyramid_b, crops_b, (64, 64)).reshape(rows_b, -1),
+        torch.bfloat16, 20)
     # The other shapes of both paths, for the record (not in the JSON).
     n_rung2_b = B * n_r2
     for label, p, s, (lv, bx, an), shape, method in (
@@ -1746,6 +1899,12 @@ def main() -> None:
                               "one_card_detect":
                                   mesh["launches_detect_one_card"][name]},
             "fused": fused})
+    entries.append({
+        "name": "net_layer", "route": "cuda",
+        "source": "pyfaceanalysis_torch/ops/csrc/net_layer.cu",
+        "replaces": None, "max_abs_err": errs["net_layer"],
+        "launches": layer_detect, "launches_fused_batch": layer_batch,
+        "single": layer_1, "fused": layer_b})
     torch.cuda.synchronize()
     print(json.dumps({"paths": {
         "batch": B, "wall_ms": wall,

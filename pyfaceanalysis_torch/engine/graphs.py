@@ -3,8 +3,8 @@ replayed after.
 
 ``FaceDetector._dispatch_one`` and ``_dispatch_fused`` enqueue the same
 device work whenever the shapes are the same: the pyramid, the 17 stages
-with both CUDA kernels, the rungs, the eye pass and the output block,
-about 2,700 launches for one image. :class:`GraphCache` runs that work
+with the CUDA kernels, the rungs, the eye pass and the output block,
+about 1,300 launches for one image. :class:`GraphCache` runs that work
 eagerly on the first dispatch of a key (which warms every lazy
 initialisation), captures it into a ``torch.cuda.CUDAGraph`` on the
 second, and replays the graph on every later one. The key is whatever
@@ -23,9 +23,9 @@ by canvas stack shape, face bucket and crop count, whose work takes a
 tuple of inputs (the stack and the face table): each is copied into its
 own static tensor, and the work is called with them in order.
 
-The crop and gather wrappers count their launches when they are called;
-a capture calls them without running anything, so a capture takes its
-counts back and every replay adds them again.
+The crop, gather and layer kernels' wrappers count their launches when
+they are called; a capture calls them without running anything, so a
+capture takes its counts back and every replay adds them again.
 
 A cache runs one dispatch at a time: the static input and output are
 shared, so the copy, the replay and the clone of one call are enqueued
@@ -41,14 +41,14 @@ from typing import Callable, Hashable, Tuple, Union
 
 import torch
 
-from pyfaceanalysis_torch.ops import cuda_crop, cuda_gather
+from pyfaceanalysis_torch.ops import cuda_crop, cuda_gather, cuda_net_layer
 from pyfaceanalysis_torch.utils.profiling import annotate
 
 # Keys a cache remembers, captured or seen once, least recently used
 # dropped first; a dropped graph frees its memory pool.
 MAX_GRAPHS = 4
 
-_COUNTED = (cuda_crop.KERNEL, cuda_gather.KERNEL)
+_COUNTED = (cuda_crop.KERNEL, cuda_gather.KERNEL, cuda_net_layer.KERNEL)
 
 # One tensor (a dispatch's canvas) or a tuple of them (the heads' inputs).
 Inputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]

@@ -4,8 +4,14 @@ Port of ``pyfaceanalysis_tpu.models.network``. A layer owns a static
 (F, k) gather map ("switchboard") from the previous layer's flat output, a
 nonlinear :class:`Expansion` and a trained :class:`LinearNode` with
 per-field weights (F, k_exp, d). Executing a layer is one gather, one
-expansion, one ``bfi,fio->bfo`` product and a clip -- plain torch ops (the
-JAX package leaves them to XLA, not to a Pallas kernel).
+expansion, one ``bfi,fio->bfo`` product and a clip (the JAX package leaves
+them to XLA, not to a Pallas kernel). The product's left operand -- the
+previous layer's clip, the gather, the expansion, the centring and the
+operand rounding -- is :func:`layer_operand_ref`, plain torch ops, on the
+CPU, and one launch of the layer kernel (``ops/cuda_net_layer.py``), the
+same bits, on a card. A network chains the raw products, each clipped as
+the next layer reads it, so only the last layer's clip and reshape
+remain.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from torch import nn
 
 from pyfaceanalysis_torch.models.expansion import Expansion
 from pyfaceanalysis_torch.models.sfa import LinearNode
+from pyfaceanalysis_torch.ops import cuda_net_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,17 +95,58 @@ class HierarchicalNetwork(nn.Module):
         return apply_network(self, x)
 
 
+def layer_operand_ref(spec: LayerSpec, node: LinearNode, index: torch.Tensor,
+                      x: torch.Tensor, clip: Optional[float] = None,
+                      compute_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """The (B, F, D) left operand of a layer's product, in plain torch ops:
+    ``x`` is the layer's (B, P) input, or the previous layer's (B, G, O)
+    product with that layer's ``clip`` (None: none). ``index`` is the
+    (F, k) switchboard map on ``x``'s device."""
+    if clip is not None:
+        x = torch.clamp(x, -clip, clip)
+    x = x.reshape(x.shape[0], -1)
+    return node.centred(spec.expansion(x[:, index]), compute_dtype)
+
+
+def layer_operand(spec: LayerSpec, node: LinearNode, index: torch.Tensor,
+                  x: torch.Tensor, clip: Optional[float] = None,
+                  compute_dtype: Optional[torch.dtype] = None
+                  ) -> torch.Tensor:
+    """:func:`layer_operand_ref`'s operand: the layer kernel on a card,
+    the plain version elsewhere."""
+    if x.device.type != "cuda":
+        return layer_operand_ref(spec, node, index, x, clip, compute_dtype)
+    return cuda_net_layer.layer_operand(
+        x, index, spec.expansion.columns(index.shape[1]),
+        node.mean_contiguous(), spec.expansion.exponent, clip, compute_dtype)
+
+
+def layer_product(spec: LayerSpec, node: LinearNode, index: torch.Tensor,
+                  x: torch.Tensor, clip: Optional[float] = None,
+                  compute_dtype: Optional[torch.dtype] = None
+                  ) -> torch.Tensor:
+    """A layer's product (B, F, out_dim), before its clip and as the
+    product leaves it (arguments as :func:`layer_operand_ref`)."""
+    return torch.einsum("bfd,fdo->bfo",
+                        layer_operand(spec, node, index, x, clip,
+                                      compute_dtype),
+                        node.weights(compute_dtype))
+
+
+def _clipped_rows(y: torch.Tensor, clip: Optional[float]) -> torch.Tensor:
+    if clip is not None:
+        y = torch.clamp(y, -clip, clip)
+    return y.reshape(y.shape[0], -1)
+
+
 def apply_layer(spec: LayerSpec, node: LinearNode, index: torch.Tensor,
                 x: torch.Tensor,
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(B, P) flat -> (B, F * out_dim) flat; ``index`` is the (F, k)
     switchboard map on ``x``'s device."""
-    fields = x[:, index]                          # (B, F, k)
-    expanded = spec.expansion(fields)             # (B, F, k_exp)
-    y = node(expanded, compute_dtype=compute_dtype)
-    if spec.clip is not None:
-        y = torch.clamp(y, -spec.clip, spec.clip)
-    return y.reshape(y.shape[0], -1)
+    return _clipped_rows(layer_product(spec, node, index, x, None,
+                                       compute_dtype), spec.clip)
 
 
 def apply_network(net: HierarchicalNetwork, x: torch.Tensor,
@@ -106,7 +154,10 @@ def apply_network(net: HierarchicalNetwork, x: torch.Tensor,
                   ) -> torch.Tensor:
     """Runs all layers. ``compute_dtype=torch.bfloat16`` rounds the product
     OPERANDS only (see :meth:`LinearNode.forward`); expansions, clipping
-    and the regression heads stay float32."""
+    and the regression heads stay float32. Each layer reads the previous
+    one's product as it is and applies its clip on load."""
+    clip = None
     for spec, node, index in zip(net.specs, net.params, net.indices):
-        x = apply_layer(spec, node, index, x, compute_dtype=compute_dtype)
-    return x
+        x = layer_product(spec, node, index, x, clip, compute_dtype)
+        clip = spec.clip
+    return _clipped_rows(x, clip)

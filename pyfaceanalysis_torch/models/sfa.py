@@ -51,10 +51,47 @@ class LinearNode(nn.Module):
         super().__init__()
         self.register_buffer("mean", _tensor(mean, dtype))
         self.register_buffer("W", _tensor(W, dtype))
+        self._kept = {}
 
     @property
     def out_dim(self) -> int:
         return self.W.shape[-1]
+
+    def _keep(self, key, source: torch.Tensor, make) -> torch.Tensor:
+        """``make(source)``, made once per buffer (and in-place version of
+        it) and kept. Not kept when made inside a CUDA graph's capture,
+        where its tensor would hold its values only after a replay."""
+        hit = self._kept.get(key)
+        if hit is not None and hit[0] is source and hit[1] == source._version:
+            return hit[2]
+        out = make(source)
+        if not (source.is_cuda and torch.cuda.is_current_stream_capturing()):
+            self._kept[key] = (source, source._version, out)
+        return out
+
+    def weights(self, compute_dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+        """W as the product takes it: ``W.to(compute_dtype).float()`` (the
+        operand rounding, which keeps W's strides: they choose the
+        product's kernel, so its last bits), or W itself."""
+        if compute_dtype is None:
+            return self.W
+        return self._keep(("W", compute_dtype), self.W,
+                          lambda W: W.to(compute_dtype).float())
+
+    def mean_contiguous(self) -> torch.Tensor:
+        """The (F, D) mean in row-major order (the archives hold some
+        Fortran-ordered), as the layer kernel reads it."""
+        return self._keep("mean", self.mean, torch.Tensor.contiguous)
+
+    def centred(self, x: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The product's left operand from (B, F, D) ``x``: ``x - mean``,
+        rounded to ``compute_dtype`` and back when one is given."""
+        xc = x - self.mean[None]
+        if compute_dtype is not None:
+            xc = xc.to(compute_dtype).float()
+        return xc
 
     def forward(self, x: torch.Tensor,
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -71,12 +108,8 @@ class LinearNode(nn.Module):
         squeeze = x.dim() == 2
         if squeeze:
             x = x[:, None, :]
-        xc = x - self.mean[None]
-        W = self.W
-        if compute_dtype is not None:
-            xc = xc.to(compute_dtype).float()
-            W = W.to(compute_dtype).float()
-        y = torch.einsum("bfd,fdo->bfo", xc, W)
+        y = torch.einsum("bfd,fdo->bfo", self.centred(x, compute_dtype),
+                         self.weights(compute_dtype))
         return y[:, 0, :] if squeeze else y
 
 

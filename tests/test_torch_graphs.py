@@ -9,8 +9,9 @@ branch it replaced, and the device tables made once. On the card (marker
 ``cuda``; ``python -m pytest --noconftest -m cuda tests/test_torch_graphs.py``
 on the card's machine, which has no JAX): replayed ``detect`` and fused
 ``detect_batch`` blocks bit-equal to the eager path on both artifact
-directories, with the same kernel launch counts, and a stream that
-captures while its helper threads run. Imports no JAX.
+directories, with the same kernel launch counts (the layer kernel's
+too), and a stream that captures while its helper threads run. Imports no
+JAX.
 """
 
 import contextlib
@@ -30,7 +31,7 @@ from pyfaceanalysis_torch.engine import cascade as cascade_mod
 from pyfaceanalysis_torch.engine import detector as detector_mod
 from pyfaceanalysis_torch.engine import eyes as eyes_mod
 from pyfaceanalysis_torch.engine import graphs
-from pyfaceanalysis_torch.ops import cuda_crop, cuda_gather
+from pyfaceanalysis_torch.ops import cuda_crop, cuda_gather, cuda_net_layer
 from pyfaceanalysis_torch.ops.patches import (
     extract_patches_rotate,
     sample_patches_pyramid_ref,
@@ -178,16 +179,20 @@ def test_a_capture_takes_back_its_launches_and_a_replay_adds_them(
     def work(x):
         cuda_crop.KERNEL.launches += 1
         cuda_gather.KERNEL.launches += 7
+        cuda_net_layer.KERNEL.launches += 99
         return x + 1.0
 
-    before = (cuda_crop.KERNEL.launches, cuda_gather.KERNEL.launches)
+    def counts():
+        return (cuda_crop.KERNEL.launches, cuda_gather.KERNEL.launches,
+                cuda_net_layer.KERNEL.launches)
+
+    before = counts()
     g = graphs.capture(torch.zeros(4), work)
-    assert modes == ["thread_local"] and g.launches == (1, 7)
-    assert (cuda_crop.KERNEL.launches, cuda_gather.KERNEL.launches) == before
+    assert modes == ["thread_local"] and g.launches == (1, 7, 99)
+    assert counts() == before
     inp = torch.arange(4.0)
     out = g.replay(inp)
-    assert (cuda_crop.KERNEL.launches, cuda_gather.KERNEL.launches) == (
-        before[0] + 1, before[1] + 7)
+    assert counts() == (before[0] + 1, before[1] + 7, before[2] + 99)
     assert torch.equal(g.static_in, inp) and out is not g.static_out
     assert torch.equal(out, g.static_out)
 
@@ -314,7 +319,8 @@ def _scenes(n, faces, side, seed):
 
 
 def _counts():
-    return cuda_crop.KERNEL.launches, cuda_gather.KERNEL.launches
+    return (cuda_crop.KERNEL.launches, cuda_gather.KERNEL.launches,
+            cuda_net_layer.KERNEL.launches)
 
 
 CARD_MODELS = [("SavedNetworksTPU", 0.2, 5, [90, 220]),
@@ -348,6 +354,7 @@ def test_replays_are_bit_equal_to_eager_on_the_card(artifacts, smallest,
         assert same(got, want), f"detect block {i}"
         assert (c1[0] - c0[0], c1[1] - c0[1]) == (
             c2[0] - c1[0], c2[1] - c1[1]) == (1, 7)
+        assert c1[2] - c0[2] == c2[2] - c1[2] > 0       # layer kernels
     assert len(det._graphs) == 1
     one = scenes[5]
     assert (_detections(det.detect(one)) == _detections(eager.detect(one))
@@ -365,6 +372,7 @@ def test_replays_are_bit_equal_to_eager_on_the_card(artifacts, smallest,
             assert same(got, want), f"fused block B={B} round {r}"
             assert (c1[0] - c0[0], c1[1] - c0[1]) == (
                 c2[0] - c1[0], c2[1] - c1[1]) == (1, 7)
+            assert c1[2] - c0[2] == c2[2] - c1[2] > 0
     assert len(det._graphs) == 3
 
     # A stream whose second batch captures while the producer converts
