@@ -47,6 +47,7 @@ from pyfaceanalysis_torch.engine import eyes as eyes_mod
 from pyfaceanalysis_torch.engine import graphs
 from pyfaceanalysis_torch.engine import heads as heads_mod
 from pyfaceanalysis_torch.engine import nms as nms_mod
+from pyfaceanalysis_torch.engine import upload as upload_mod
 from pyfaceanalysis_torch.io import artifacts
 from pyfaceanalysis_torch.io.legacy import find_filenames_beginning_with
 from pyfaceanalysis_torch.io.pipeline import PipelineSpec, parse_pipeline
@@ -173,24 +174,6 @@ class DetectionModel:
             "net_eye", nets[spec.stages[model.stage("EyeLX")].network_name])
         model.calibration = artifacts.load_calibration(artifact_dir)
         return model.to(device)
-
-
-def _pad_convert(u8: np.ndarray, H: int, W: int,
-                 device: torch.device) -> torch.Tensor:
-    """Ships the true image extent as uint8 in one host-to-device copy and
-    pads/converts on the device: (h, w) or (B, h, w) uint8 -> the same with
-    the trailing two dims padded to (H, W), float32 in [0, 1], zeros
-    outside."""
-    h, w = u8.shape[-2:]
-    canvas = torch.zeros(u8.shape[:-2] + (H, W), dtype=torch.uint8,
-                         device=device)
-    canvas[..., :h, :w] = torch.from_numpy(
-        np.ascontiguousarray(u8)).to(device)
-    return canvas.to(torch.float32) / 255.0
-
-
-def _to_u8(image: np.ndarray) -> np.ndarray:
-    return np.clip(np.asarray(image) * 255.0, 0, 255).astype(np.uint8)
 
 
 def _wire_coord_scale(side: int) -> float:
@@ -503,6 +486,10 @@ class FaceDetector:
         self._graphs = graphs.GraphCache()
         self._head_graphs = (graphs.GraphCache()
                              if self.device.type == "cuda" else None)
+        # The upload's staging slots: one for each batch in flight in a
+        # stream of the default depth and one for the batch being copied.
+        self._upload = upload_mod.Uploader(self.device,
+                                           config.stream_depth + 1)
 
     # -- image preparation ---------------------------------------------------
 
@@ -561,19 +548,18 @@ class FaceDetector:
         return min(1.0, self.config.prescale_size / float(max(w, h)))
 
     def _to_canvas(self, image: np.ndarray) -> torch.Tensor:
-        """Pads into the fixed canvas on the device."""
-        with annotate("pfa.upload"):
-            H, W = self._fit_canvas(*image.shape)
-            return _pad_convert(_to_u8(image), H, W, self.device)
+        """One (h, w) image -> its (H, W) float canvas on the device
+        (engine.upload)."""
+        H, W = self._fit_canvas(*image.shape)
+        return self._upload.canvas([image], H, W)[0]
 
     def _to_canvas_batch(self, images: Sequence[np.ndarray],
                          request=None) -> torch.Tensor:
         """B same-sized (h, w) images -> (B, H, W) float canvas stack, in
-        ONE host-to-device copy of the true image extents as uint8."""
-        with annotate("pfa.upload", request=request):
-            H, W = self._fit_canvas(*images[0].shape)
-            return _pad_convert(np.stack([_to_u8(im) for im in images]), H,
-                                W, self.device)
+        ONE host-to-device copy of the true image extents (engine.upload);
+        ``request`` names the batch in the upload's span."""
+        H, W = self._fit_canvas(*images[0].shape)
+        return self._upload.canvas(images, H, W, request=request)
 
     def _use_pyramid(self, pyr) -> bool:
         """Pyramid path for the iter-0 extraction (nearest interp only)."""
@@ -858,20 +844,26 @@ class FaceDetector:
         plain detect_batch call for that batch (pipeline flushed first).
 
         With ``config.stream_push_prefetch`` the stream runs in three
-        stages over two helper threads: a producer (uint8 conversion and
-        the host-to-device copy), the caller's thread (cascade dispatch)
-        and a finisher (result pull, NMS, attribute heads, assembly). The
-        finisher enqueues device work too: the heads' program of each
-        batch. All device work stays on the default stream, so it executes
-        in the order it was enqueued, and each of the finisher's two pulls
-        (the result block, the heads' output) waits for everything enqueued
+        stages over two helper threads: a producer (the upload), the
+        caller's thread (cascade dispatch) and a finisher (result pull,
+        NMS, attribute heads, assembly). The finisher enqueues device work
+        too: the heads' program of each batch. All device work but the
+        upload's copies stays on the default stream, so it executes in the
+        order it was enqueued, and each of the finisher's two pulls (the
+        result block, the heads' output) waits for everything enqueued
         before it, the cascades of later batches included: the overlap is
-        less than ``depth`` suggests. So does each host-to-device copy of
-        the producer (the canvases): PyTorch synchronises the stream after
-        a copy made without ``non_blocking``. The finisher's one copy, the
-        heads' face table, comes from pinned memory without blocking, so
-        the finisher enqueues it and the heads' program behind the batches
-        in flight and waits only in the heads' pull. The dispatch makes no
+        less than ``depth`` suggests. The producer does not wait so
+        (engine.upload): it copies a batch's float rows into a pinned
+        staging slot, enqueues the slot's copy to the card on the upload's
+        own stream, where the copy engine overlaps the cascades in flight,
+        and enqueues the rounding to the canvas on the default stream
+        behind the copy's event. The producer waits only when a
+        slot's earlier copy has not completed (``pfa.upload.wait``); the
+        copy stream does not overwrite a device slot before the conversion
+        that read it has run. The finisher's one copy, the heads' face
+        table, comes from pinned memory without blocking, so the finisher
+        enqueues it and the heads' program behind the batches in flight
+        and waits only in the heads' pull. The dispatch makes no
         host-to-device copy and reads nothing back (its scale table and u16
         constants stay on the device), so the caller enqueues batch i+1
         while batch i's cascade runs. From a batch shape's second dispatch

@@ -29,11 +29,17 @@ id) and its counts. On the thread that started the session the span also
 enters ``record_function(name)``, so it shows in the trace's CPU events.
 Spans go to a bounded in-memory log; :func:`spans` reads it.
 
-The serving path's spans (``engine/detector.py``, ``engine/cascade.py``,
-``engine/eyes.py``, ``engine/heads.py``), with their counts in brackets:
+The serving path's spans (``engine/detector.py``, ``engine/upload.py``,
+``engine/cascade.py``, ``engine/eyes.py``, ``engine/heads.py``), with
+their counts in brackets:
 
 - ``pfa.detect``: one ``FaceDetector.detect`` call;
-- ``pfa.upload``: a canvas (batch) to the device;
+- ``pfa.upload`` [bytes, pinned]: a canvas (batch) to the device
+  (``engine/upload.py``); ``bytes`` the host sent to the card, ``pinned``
+  1 when they left from a pinned staging slot without blocking, 0 on the
+  host's rounding (the CPU, dtypes other than float32 and float64);
+- ``pfa.upload.wait``: the host waiting for a staging slot's earlier copy
+  to complete before it writes the slot again;
 - ``pfa.dispatch`` [graph]: from the grid to the enqueued result block;
   ``graph`` is 1 when the block came from a replay of the dispatch's
   CUDA graph (``engine/graphs.py``), else 0;
